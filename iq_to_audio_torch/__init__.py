@@ -1,0 +1,20 @@
+"""iq-to-audio on PyTorch and CUDA: the port of ``iq_to_audio_tpu`` to an
+NVIDIA Hopper card.
+
+The NFM main path streams a baseband IQ capture through one chunk step per
+block: the hand-written CUDA polyphase-FIR channelizer
+(``csrc/poly_fir.cu``), the decimated-rate mixer, the FM discriminator and
+de-emphasis, the 48 kHz polyphase resampler and the s16 encode.  Entry
+points run on the card unless the caller asks for the CPU
+(``ProcessingConfig(device="cpu")``), where each kernel's plain torch
+version runs instead.  The package imports neither JAX nor the JAX package.
+"""
+
+from __future__ import annotations
+
+__version__ = "0.1.0"
+
+from .pipeline.config import ProcessingConfig  # noqa: E402
+from .pipeline.pipeline import ProcessingPipeline, ProcessingResult  # noqa: E402
+
+__all__ = ["__version__", "ProcessingConfig", "ProcessingPipeline", "ProcessingResult"]

@@ -1,0 +1,39 @@
+"""Exact interchange of the stream state between the JAX package and the
+port.
+
+The JAX state is a pytree of arrays (``ChunkStep.init_state`` there): the
+uint32 NCO ``phase``, the float32 ``fir_tail``, the ``demod`` carries, the
+running ``peak`` and the resampler ``rs_tail``.  The port holds the same
+dict of tensors, with the uint32 phase as an ``int64`` masked to 32 bits
+(torch has no usable uint32 arithmetic).  Both directions are exact.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def state_from_jax(np_state, device) -> dict:
+    """Numpy arrays (``jax.tree_util.tree_map(np.asarray, state)``) to
+    tensors on ``device``; uint32 becomes int64."""
+    if isinstance(np_state, dict):
+        return {k: state_from_jax(v, device) for k, v in np_state.items()}
+    arr = np.asarray(np_state)
+    if arr.dtype == np.uint32:
+        arr = arr.astype(np.int64)
+    elif arr.dtype != np.float32:
+        raise TypeError(f"unexpected state dtype {arr.dtype}")
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def state_to_jax(state) -> dict:
+    """Tensors to numpy arrays in the JAX layout; int64 becomes uint32."""
+    if isinstance(state, dict):
+        return {k: state_to_jax(v) for k, v in state.items()}
+    arr = state.detach().cpu().numpy()
+    if arr.dtype == np.int64:
+        if arr.min(initial=0) < 0 or arr.max(initial=0) > 0xFFFFFFFF:
+            raise ValueError("phase outside the uint32 range")
+        return arr.astype(np.uint32)
+    return arr.copy()

@@ -1,0 +1,313 @@
+"""The torch port's chunk step and pipeline against the JAX package and the
+float64 twin, on the CPU at small sizes (250 kHz captures, a few chunks)."""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from conftest import error_db, make_nfm_iq
+
+import iq_to_audio_tpu as jpkg
+from iq_to_audio_tpu.demod.nfm import NFMDecoder as JNFMDecoder
+from iq_to_audio_tpu.pipeline import step as jstep
+
+import iq_to_audio_torch as tpkg
+from iq_to_audio_torch.convert import state_from_jax, state_to_jax
+from iq_to_audio_torch.demod import create_decoder
+from iq_to_audio_torch.io.writer import read_wav, write_stereo_wav
+from iq_to_audio_torch.ops.ddc import DDCPlan, bandpass_kernel, interleave_kernel
+from iq_to_audio_torch.ops.nco import nco_increment_fixed
+from iq_to_audio_torch.ops.resample import ResamplePlan, design_resampler_kernel
+from iq_to_audio_torch.pipeline import step as tstep
+from iq_to_audio_torch.pipeline.benchmark import run_benchmark
+from iq_to_audio_torch.pipeline.filters import compute_decimation, design_channel_filter
+from iq_to_audio_torch.ref.chain import RefResampler, ref_demod_chain
+
+torch.set_num_threads(1)
+
+FS = 250_000.0
+CENTER = 145_000_000.0
+OFFSET = 25_000.0
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _write_capture(tmp_path, iq, codec="pcm_s16le"):
+    path = tmp_path / f"baseband_{int(CENTER)}Hz_cap.wav"
+    write_stereo_wav(path, np.column_stack([iq.real, iq.imag]), int(FS), codec=codec)
+    return path
+
+
+def _golden_audio(iq, mix_sign):
+    decim, fs_ch = compute_decimation(FS, 96_000.0)
+    taps = design_channel_filter(FS, 12_500.0, decim)
+    audio_ch, _ = ref_demod_chain(
+        iq.astype(np.complex128), sample_rate=FS, freq_offset=OFFSET, taps=taps,
+        decimation=decim, mode="nfm", agc_enabled=True, mix_sign=mix_sign,
+    )
+    plan = ResamplePlan.create(fs_ch, 48_000.0, 1)
+    return np.clip(RefResampler(plan.up, plan.down).resample_all(audio_ch), -0.99, 0.99)
+
+
+def _geometry(offsets):
+    decim, fs_ch = compute_decimation(FS, 96_000.0)
+    taps = design_channel_filter(FS, 12_500.0, decim)
+    rate = ResamplePlan.create(fs_ch, 48_000.0, 1)
+    plan = DDCPlan.create(len(taps), decim, target_chunk=16_384, out_align=rate.down)
+    rs_plan = ResamplePlan.create(fs_ch, 48_000.0, plan.out_size)
+    incs = [nco_increment_fixed(o, FS) for o in offsets]
+    return plan, rs_plan, fs_ch, bandpass_kernel(taps, incs), incs
+
+
+def _jax_step(plan, rs_plan, fs_ch, kernel_np, incs, acc_chunks):
+    decoder = JNFMDecoder(deemph_us=300.0)
+    decoder.setup(fs_ch)
+    rs_kernel = jnp.asarray(design_resampler_kernel(rs_plan.up, rs_plan.down))
+    kernel_il = jnp.asarray(interleave_kernel(kernel_np, "iq"))
+    incs_j = jnp.asarray(np.asarray(incs, np.uint32))
+
+    def run(state, accs, raw, rs_offset, slot):
+        return jstep.chunk_step_impl(
+            state, accs, jnp.asarray(raw), jnp.int32(rs_offset), jnp.int32(slot), incs_j,
+            kernel_il, rs_kernel, None, ddc_plan=plan, rs_plan=rs_plan, decoder=decoder,
+            codec="pcm_s16le", iq_order="iq", pass_through=False, dump_iq=False,
+            with_stages=False, num_channels=len(incs), acc_chunks=acc_chunks,
+            channelizer="conv", j_lanes=1,
+        )
+
+    return run, decoder
+
+
+def _torch_step(plan, rs_plan, fs_ch, kernel_np, incs):
+    decoder = create_decoder("nfm", deemph_us=300.0, agc_enabled=True)
+    decoder.setup(fs_ch)
+    return tstep.build_chunk_step(
+        ddc_plan=plan, rs_plan=rs_plan, ddc_kernel_np=kernel_np,
+        rs_kernel_np=design_resampler_kernel(rs_plan.up, rs_plan.down), incs_fixed=incs,
+        codec="pcm_s16le", iq_order="iq", decoder=decoder, device=torch.device("cpu"),
+        est_total_chunks=4,
+    )
+
+
+def _jax_init_state(plan, rs_plan, incs, decoder, start_sample):
+    c = len(incs)
+    phase = (np.asarray(incs, np.uint64) * np.uint64(start_sample)) % np.uint64(1 << 32)
+    return {
+        "phase": jnp.asarray(phase.astype(np.uint32)),
+        "fir_tail": jnp.zeros((2 * plan.overlap,), jnp.float32),
+        "demod": decoder.init_state((c,)),
+        "peak": jnp.zeros((c,), jnp.float32),
+        "rs_tail": jnp.zeros((c, rs_plan.tail_len), jnp.float32),
+    }
+
+
+def _raw_chunks(plan, n_chunks, seed):
+    iq = make_nfm_iq(FS, plan.chunk_size * n_chunks / FS, OFFSET, seed=seed)
+    raw = np.empty(2 * iq.size, np.int16)
+    raw[0::2] = np.round(np.clip(iq.real, -1, 1) * 32767)
+    raw[1::2] = np.round(np.clip(iq.imag, -1, 1) * 32767)
+    return raw.reshape(n_chunks, 2 * plan.chunk_size)
+
+
+def test_state_round_trip_exact():
+    plan, rs_plan, fs_ch, kernel_np, incs = _geometry((OFFSET, -60_000.0))
+    run, decoder = _jax_step(plan, rs_plan, fs_ch, kernel_np, incs, acc_chunks=1)
+    state = _jax_init_state(plan, rs_plan, incs, decoder, start_sample=987_654_321)
+    accs = {"audio": jnp.zeros((2, rs_plan.out_capacity), jnp.int16)}
+    state, _, _ = run(state, accs, _raw_chunks(plan, 1, seed=3)[0], rs_plan.chunk_offset(0), 0)
+    np_state = jax.tree_util.tree_map(np.asarray, state)
+    back = state_to_jax(state_from_jax(np_state, "cpu"))
+    assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(np_state)
+    for got, want in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(np_state)):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    assert state_from_jax(np_state, "cpu")["phase"].dtype == torch.int64
+
+
+@pytest.mark.parametrize("offsets", [(OFFSET,), (OFFSET, -60_000.0)])
+def test_chunk_step_matches_jax(offsets):
+    """Four chunks from the same mid-stream state: s16 audio within 1 LSB,
+    float state within -100 dB, NCO phase exact."""
+    plan, rs_plan, fs_ch, kernel_np, incs = _geometry(offsets)
+    run, decoder = _jax_step(plan, rs_plan, fs_ch, kernel_np, incs, acc_chunks=4)
+    step = _torch_step(plan, rs_plan, fs_ch, kernel_np, incs)
+    assert step.acc_chunks == 4
+    jstate = _jax_init_state(plan, rs_plan, incs, decoder, start_sample=12_345)
+    jaccs = {"audio": jnp.zeros((len(incs), 4 * rs_plan.out_capacity), jnp.int16)}
+    # warm the JAX stream for one chunk, then start both from its state
+    warm = _raw_chunks(plan, 1, seed=9)[0]
+    jstate, _, _ = run(jstate, jaccs, warm, rs_plan.chunk_offset(0), 0)
+    tstate = state_from_jax(jax.tree_util.tree_map(np.asarray, jstate), "cpu")
+    taccs = step.init_accs()
+    rs_in = plan.out_size
+    for slot, raw in enumerate(_raw_chunks(plan, 4, seed=4)):
+        off = rs_plan.chunk_offset(rs_in)
+        jstate, jaccs, _ = run(jstate, jaccs, raw, off, slot)
+        tstate = step.fn(tstate, taccs, torch.from_numpy(raw), off, slot)
+        rs_in += plan.out_size
+    got, want = taccs["audio"].numpy().astype(np.int32), np.asarray(jaccs["audio"]).astype(np.int32)
+    assert np.abs(got - want).max() <= 1
+    assert np.abs(want).max() > 1000
+    back = state_to_jax(tstate)
+    np.testing.assert_array_equal(back["phase"], np.asarray(jstate["phase"]))
+    for key in ("fir_tail", "rs_tail", "peak"):
+        assert error_db(back[key], np.asarray(jstate[key])) < -100.0, key
+    for key in ("prev_r", "prev_i", "deemph_y"):
+        assert error_db(back["demod"][key], np.asarray(jstate["demod"][key])) < -100.0, key
+
+
+def test_superstep_matches_single_chunks():
+    plan, rs_plan, fs_ch, kernel_np, incs = _geometry((OFFSET,))
+    step = _torch_step(plan, rs_plan, fs_ch, kernel_np, incs)
+    raws = torch.from_numpy(_raw_chunks(plan, 4, seed=2))
+    s1, a1 = step.init_state(), step.init_accs()
+    for k in range(4):
+        s1 = step.fn(s1, a1, raws[k], rs_plan.chunk_offset(0), k)
+    s2, a2 = step.init_state(), step.init_accs()
+    s2 = step.fn_super(s2, a2, raws, rs_plan.chunk_offset(0), 0)
+    assert torch.equal(a1["audio"], a2["audio"])
+    assert torch.equal(s1["phase"], s2["phase"])
+
+
+def test_pipeline_matches_float64_twin(tmp_path):
+    iq = make_nfm_iq(FS, 1.0, OFFSET)
+    path = _write_capture(tmp_path, iq, codec="pcm_f32le")
+    out = tmp_path / "audio_nfm.wav"
+    cfg = tpkg.ProcessingConfig(
+        in_path=path, target_freq=CENTER + OFFSET, output_path=out, device="cpu",
+        chunk_size=65_536,
+    )
+    result = tpkg.ProcessingPipeline(cfg).run()
+    assert result.dispatched_chunks >= 4
+    got, rate = read_wav(out)
+    got = got[:, 0]
+    assert rate == 48_000
+    ref = _golden_audio(iq, result.mix_sign)
+    n = min(got.size, ref.size)
+    assert abs(got.size - ref.size) <= 2
+    assert error_db(got[:n], ref[:n]) < -60.0
+    assert result.audio_peak > 0.01
+    whole_rms_db = 20.0 * np.log10(np.sqrt(np.mean(got.astype(np.float64) ** 2)))
+    assert abs(result.stats[0].rms_dbfs - whole_rms_db) < 0.1
+
+
+def test_pipeline_matches_jax_wav(tmp_path, monkeypatch):
+    monkeypatch.setenv("IQ2A_CHANNELIZER", "conv")
+    iq = make_nfm_iq(FS, 0.6, OFFSET)
+    path = _write_capture(tmp_path, iq)
+    outs = []
+    for pkg, extra in ((jpkg, {}), (tpkg, {"device": "cpu"})):
+        out = tmp_path / f"audio_{pkg.__name__}.wav"
+        cfg = pkg.ProcessingConfig(
+            in_path=path, target_freq=CENTER + OFFSET, output_path=out, chunk_size=65_536,
+            **extra,
+        )
+        pkg.ProcessingPipeline(cfg).run()
+        outs.append(read_wav(out)[0][:, 0])
+    assert outs[0].size == outs[1].size
+    assert error_db(outs[1], outs[0]) < -80.0
+    assert np.abs(outs[1] - outs[0]).max() <= 1.5 / 32768  # within 1 LSB
+
+
+def test_chunk_size_invariance(tmp_path):
+    iq = make_nfm_iq(FS, 0.8, OFFSET)
+    path = _write_capture(tmp_path, iq)
+    outputs = []
+    for chunk in (65_536, 524_288):
+        out = tmp_path / f"audio_{chunk}.wav"
+        cfg = tpkg.ProcessingConfig(
+            in_path=path, target_freq=CENTER + OFFSET, output_path=out, chunk_size=chunk,
+            device="cpu",
+        )
+        tpkg.ProcessingPipeline(cfg).run()
+        outputs.append(read_wav(out)[0][:, 0])
+    n = min(map(len, outputs))
+    assert abs(len(outputs[0]) - len(outputs[1])) <= 1
+    assert error_db(outputs[0][:n], outputs[1][:n]) < -70.0
+
+
+def test_run_benchmark_on_cpu(tmp_path):
+    results: dict = {}
+    rc = run_benchmark(
+        seconds=0.3, sample_rate=FS, freq_offset=OFFSET, center_freq=None, target_freq=None,
+        base_kwargs={"device": "cpu", "chunk_size": 32_768}, warmup=False,
+        results_out=results, workdir=tmp_path,
+    )
+    assert rc == 0
+    assert results["dispatched_chunks"] >= 2
+    audio, rate = read_wav(results["output_path"])
+    assert rate == 48_000 and abs(audio.shape[0] - 0.3 * 48_000) <= 2
+    assert -12.0 < results["audio_peak_dbfs"] < 0.0
+
+
+def test_pipeline_input_windows(tmp_path):
+    """Preview limit, a sample-precise input window, and probe-only."""
+    path = _write_capture(tmp_path, make_nfm_iq(FS, 0.8, OFFSET))
+
+    def run(**kw):
+        out = tmp_path / "audio_window.wav"
+        cfg = tpkg.ProcessingConfig(
+            in_path=path, target_freq=CENTER + OFFSET, output_path=out, device="cpu",
+            chunk_size=65_536, **kw,
+        )
+        return tpkg.ProcessingPipeline(cfg).run(), out
+
+    result, out = run(max_input_seconds=0.3)
+    assert result.input_samples == int(0.3 * FS)
+    assert abs(read_wav(out)[0].shape[0] - 0.3 * 48_000) <= 2
+    result, out = run(input_start_sample=50_000, input_num_samples=100_000)
+    assert result.input_samples == 100_000
+    assert abs(read_wav(out)[0].shape[0] - 100_000 / FS * 48_000) <= 2
+    result, _ = run(probe_only=True)
+    assert result.mix_sign in (1, -1) and result.audio_peak == 0.0
+
+
+def test_default_device_needs_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None runs on it")
+    path = _write_capture(tmp_path, make_nfm_iq(FS, 0.1, OFFSET))
+    cfg = tpkg.ProcessingConfig(in_path=path, target_freq=CENTER + OFFSET)
+    assert cfg.device is None
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpkg.ProcessingPipeline(cfg).run()
+
+
+@pytest.mark.parametrize(
+    "field,value",
+    [
+        ("demod_mode", "usb"),
+        ("demod_mode", "none"),
+        ("checkpoint_secs", 1.0),
+        ("extra_target_freqs", [CENTER]),
+    ],
+)
+def test_unported_features_raise(tmp_path, field, value):
+    path = _write_capture(tmp_path, make_nfm_iq(FS, 0.1, OFFSET))
+    cfg = tpkg.ProcessingConfig(in_path=path, target_freq=CENTER + OFFSET, device="cpu")
+    setattr(cfg, field, value)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpkg.ProcessingPipeline(cfg).run()
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import iq_to_audio_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'iq_to_audio_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'iq_to_audio_tpu'))]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
