@@ -7,6 +7,11 @@ full-rate NCO disappears: the raw stream is filtered by per-channel bandpass
 taps at stride ``2D`` (:func:`iq_to_audio_torch.ops.poly_fir.poly_fir_il`)
 and the oscillator runs only at the decimated rate (:func:`mix_and_advance`).
 
+:func:`ddc_apply` is the pair-input entry point of the JAX package (an
+(re, im) pair with a ``(2, L-1)`` tail): through the same kernel over the
+pair (:func:`~iq_to_audio_torch.ops.poly_fir.poly_fir_pair`) when given the
+polyphase tensor, else as a strided ``conv1d`` with TF32 off.
+
 Phase is uint32 fixed point (1 cycle == 2**32 counts).  torch has no usable
 uint32 arithmetic, so the device carries it as ``int64`` masked with
 ``& 0xFFFFFFFF``: ``inc_lo * n < 2**50`` for any chunk, so the product is
@@ -20,7 +25,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .poly_fir import poly_fir_il
+from .poly_fir import poly_fir_il, poly_fir_pair
 
 _TWO32 = 1 << 32
 MASK32 = _TWO32 - 1
@@ -177,3 +182,49 @@ def ddc_apply_il(
     # clone: a view would keep the whole chunk alive in the carried state
     new_itail = f[2 * N - 2 * (L - 1) :].clone() if L > 1 else itail
     return yr, yi, new_itail, phase_next
+
+
+def ddc_apply(
+    plan: DDCPlan,
+    kernel: torch.Tensor,
+    xr: torch.Tensor,
+    xi: torch.Tensor,
+    tail: torch.Tensor,
+    phase0_fixed: torch.Tensor,
+    inc_lo_fixed: torch.Tensor,
+    *,
+    poly_w: torch.Tensor | None = None,
+):
+    """One chunk of an (re, im) pair through mix+filter+decimate.
+
+    Parameters
+    ----------
+    kernel: ``(2C, 2, L)`` from :func:`bandpass_kernel`.
+    xr, xi: ``(N,)`` input pair (N = plan.chunk_size).
+    tail: ``(2, L-1)`` carried input tail (rows: re, im).
+    phase0_fixed, inc_lo_fixed: ``(C,)`` int64 holding uint32 values.
+    poly_w: optional ``(K, 2D, 2C)`` = ``build_poly_kernel(kernel, D)``: the
+        FIR then runs through :func:`~iq_to_audio_torch.ops.poly_fir.poly_fir_pair`
+        instead of ``conv1d``.
+
+    Returns ``(yr, yi, new_tail, phase_next)`` with ``yr/yi`` of shape
+    ``(C, N/D)``.
+    """
+    L, D, N = plan.num_taps, plan.decimation, plan.chunk_size
+    assert xr.shape[-1] == N
+    m = plan.out_size
+    x_pair = torch.stack([torch.cat([tail[0], xr]), torch.cat([tail[1], xi])])
+    if poly_w is not None:
+        bb = poly_fir_pair(x_pair, poly_w, D, m).reshape(-1, 2, m)
+    else:
+        with torch.backends.cudnn.flags(allow_tf32=False):
+            out = torch.nn.functional.conv1d(x_pair[None], kernel, stride=D)
+        bb = out[0].reshape(-1, 2, m)
+    yr, yi, phase_next = mix_and_advance(
+        bb[:, 0], bb[:, 1], phase0_fixed, inc_lo_fixed, m
+    )
+    if L > 1:
+        new_tail = torch.stack([xr[N - (L - 1) :], xi[N - (L - 1) :]])
+    else:
+        new_tail = tail
+    return yr, yi, new_tail, phase_next

@@ -1,7 +1,12 @@
-"""Constant-coefficient first-order recurrences as block matmuls.
+"""First-order recurrences ``y[n] = a[n]*y[n-1] + b[n]``.
 
-Port of the JAX package's ``ops/iir.py::first_order_scan_const`` and
-``deemphasis``.  ``y[n] = a*y[n-1] + b[n]`` has the closed block form
+Port of the JAX package's ``ops/iir.py``: the de-emphasis and the DC blocker
+(constant coefficient) and the SSB feedback AGC (input-dependent
+coefficients), each with its carry ``y[-1]`` threaded between chunks so that
+chunked output equals whole-signal output.
+
+With a constant ``a`` (:func:`first_order_scan_const`) the recurrence has the
+closed block form
 
     y[i] = a^(i+1) * y_in + sum_{j<=i} a^(i-j) * b[j]     (per block)
 
@@ -15,6 +20,13 @@ two folds differ only in f32 rounding order; the tests hold them within
 
 Matmuls run in full float32: on CUDA the pipeline asserts that
 ``torch.backends.cuda.matmul.allow_tf32`` is False.
+
+With input-dependent coefficients (:func:`first_order_scan`) the JAX package
+uses ``lax.associative_scan`` over :func:`first_order_combine`; torch has
+none, so the port runs the Hillis-Steele doubling scan over the same
+combine: ``ceil(log2 N)`` rounds of whole-tensor ops, never a loop over
+samples.  The cumprod-and-divide form of the float64 twin would underflow in
+float32 over a chunk (0.999**161_250), so it is not used.
 """
 
 from __future__ import annotations
@@ -99,3 +111,71 @@ def deemphasis(x: torch.Tensor, alpha: float, y0: torch.Tensor):
     with exact ``y[-1]`` carry (reference ``decoders/nfm.py:27-62``)."""
     beta = float(np.float32(1.0) - np.float32(alpha))
     return first_order_scan_const(float(alpha), x * beta, y0)
+
+
+def first_order_combine(e1, e2):
+    """Associative combine of ``(a, b)`` recurrence elements, ``e1`` first:
+    ``(a1*a2, a2*b1 + b2)``."""
+    a1, b1 = e1
+    a2, b2 = e2
+    return a1 * a2, a2 * b1 + b2
+
+
+def first_order_scan(a: torch.Tensor, b: torch.Tensor, y0):
+    """Evaluate ``y[n] = a[n]*y[n-1] + b[n]`` along the last axis.
+
+    Inclusive Hillis-Steele scan: after the round of stride ``d`` element
+    ``n`` holds the composition of elements ``n-2d+1 .. n``.  ``y0`` is the
+    carried ``y[-1]`` (the batch shape of ``a``/``b``).  Returns
+    ``(y, y_last)``.
+    """
+    cum_a, cum_b = a, b
+    n = a.shape[-1]
+    d = 1
+    while d < n:
+        ca, cb = first_order_combine(
+            (cum_a[..., :-d], cum_b[..., :-d]), (cum_a[..., d:], cum_b[..., d:])
+        )
+        cum_a = torch.cat([cum_a[..., :d], ca], dim=-1)
+        cum_b = torch.cat([cum_b[..., :d], cb], dim=-1)
+        d *= 2
+    y0 = torch.as_tensor(y0, dtype=torch.float32, device=b.device)
+    y = cum_a * y0[..., None] + cum_b
+    return y, y[..., -1]
+
+
+def dc_blocker(x: torch.Tensor, radius: float, x_prev, y_prev):
+    """One-pole DC blocker ``y[n] = x[n] - x[n-1] + r*y[n-1]``.
+
+    Returns ``(y, (x_last, y_last))``.
+    """
+    x_prev = torch.as_tensor(x_prev, dtype=torch.float32, device=x.device)
+    y_prev = torch.as_tensor(y_prev, dtype=torch.float32, device=x.device)
+    shifted = torch.cat([x_prev[..., None], x[..., :-1]], dim=-1)
+    y, y_last = first_order_scan_const(float(radius), x - shifted, y_prev)
+    return y, (x[..., -1], y_last)
+
+
+def agc_coefficients(x: torch.Tensor, target: float, decay: float, eps: float = 1e-6):
+    """``(a, b)`` of the feedback-AGC recurrence (see :func:`feedback_agc`),
+    rounded as the JAX package rounds them: samples with ``|x| <= eps`` hold
+    the gain (``a = 1``, ``b = 0``)."""
+    mag = x.abs()
+    eps32 = float(np.float32(eps))
+    valid = mag > eps32
+    decay32 = np.float32(decay)
+    keep = float(np.float32(1.0) - decay32)
+    pull = torch.tensor(decay32 * np.float32(target), dtype=torch.float32, device=x.device)
+    a = torch.where(valid, keep, 1.0)
+    b = torch.where(valid, pull / torch.clamp(mag, min=eps32), 0.0)
+    return a, b
+
+
+def feedback_agc(x: torch.Tensor, target: float, decay: float, gain0, eps: float = 1e-6):
+    """Feedback AGC ``g += decay * (target/|x| - g)`` applied as ``x * g``:
+    the gain update comes before the sample is scaled, and samples with
+    ``|x| <= eps`` leave it untouched.  The gain is carried across chunks.
+    Returns ``(y, gain_last)``."""
+    a, b = agc_coefficients(x, target, decay, eps)
+    g, g_last = first_order_scan(a, b, gain0)
+    return x * g, g_last

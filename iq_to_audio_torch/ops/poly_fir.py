@@ -1,21 +1,31 @@
-"""Decimating polyphase FIR over the raw interleaved stream: the channelizer.
+"""Decimating polyphase FIR: the channelizer.
 
-Counterpart of the JAX package's ``ops/pallas_ddc.py``.  With ``F = 2D`` the
-contiguous reshape ``X[t, f] = x_il[F*t + f]`` turns the stride-``2D``
+Counterpart of the JAX package's ``ops/pallas_ddc.py``.  With ``F = 2D`` an
+input of ``T`` rows ``X[t, :]`` of ``F`` features turns the decimating
 bandpass filter into
 
     out[o, r] = sum_{k<K} X[r + k, :] @ W[k, :, o]
 
-with ``W = build_poly_kernel(kernel_il, 2D)`` of shape ``(K, F, 2C)``.
+with ``W`` of shape ``(K, F, 2C)`` from :func:`build_poly_kernel`.  Two
+input layouts give ``X``:
 
-:func:`poly_fir_il` runs the hand-written CUDA kernel ``csrc/poly_fir.cu``
-for a CUDA tensor and :func:`poly_fir_il_plain` for a CPU tensor; there is
-no other route.  ``poly_fir_il.launches`` counts kernel launches.
+* :func:`poly_fir_il`, the main path: the contiguous reshape
+  ``X[t, f] = x_il[F*t + f]`` of the raw interleaved stream, with
+  ``W = build_poly_kernel(kernel_il, 2D)`` (``pallas_poly_fir_il``);
+* :func:`poly_fir_pair`: the ``(2, T, D) -> (T, 2D)`` relay
+  ``X[t, i*D + p] = x_pair[i, D*t + p]`` of an (re, im) pair, with
+  ``W = build_poly_kernel(kernel, D)`` (``pallas_poly_fir``).
+
+Each runs the hand-written CUDA kernel ``csrc/poly_fir.cu`` for a CUDA
+tensor and its plain torch version for a CPU tensor; there is no other
+route.  ``poly_fir_il.launches`` and ``poly_fir_pair.launches`` count kernel
+launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -102,14 +112,56 @@ def poly_fir_il_plain(
     return out.T.contiguous()
 
 
+def poly_fir_pair_plain(
+    x_pair: torch.Tensor,
+    poly_w: torch.Tensor,
+    decimation: int,
+    out_size: int,
+    *,
+    k_block: int | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`poly_fir_pair`: relay the pair to the
+    interleaved ``(T, 2D)`` rows with torch ops, then the
+    :func:`poly_fir_il_plain` loop.  Returns float32 ``(2C, out_size)``."""
+    D = decimation
+    K = poly_w.shape[0]
+    t_need = out_size + K - 1
+    have = x_pair.shape[-1]
+    need = t_need * D
+    if have >= need:
+        x_pair = x_pair[:, :need]
+    else:
+        x_pair = torch.nn.functional.pad(x_pair, (0, need - have))
+    relayed = x_pair.reshape(2, t_need, D).transpose(0, 1).reshape(-1)
+    return poly_fir_il_plain(relayed, poly_w, decimation, out_size, k_block=k_block)
+
+
+@functools.cache
 def _library() -> ctypes.CDLL:
     lib = _cuda_build.load("poly_fir")
-    fn = lib.iq2a_poly_fir_il
-    if fn.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.iq2a_poly_fir_il, lib.iq2a_poly_fir_pair):
         fn.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, i32, i32, ptr]
         fn.restype = i32
     return lib
+
+
+def _check(name: str, x: torch.Tensor, poly_w: torch.Tensor, decimation: int, out_size: int):
+    """The checks both wrappers make of a CUDA call; returns ``(K, F, O)``."""
+    K, F, out_ch = poly_w.shape
+    if poly_w.device != x.device:
+        raise ValueError(f"{name}: the input and poly_w must be on one device")
+    if x.dtype != torch.float32 or poly_w.dtype != torch.float32:
+        raise ValueError(f"{name}: float32 inputs required")
+    if not x.is_contiguous() or not poly_w.is_contiguous():
+        raise ValueError(f"{name}: contiguous inputs required")
+    if F != 2 * decimation:
+        raise ValueError(f"{name}: poly_w has {F} features, expected {2 * decimation}")
+    if out_ch not in SUPPORTED_OUT:
+        raise ValueError(f"{name}: {out_ch} outputs per row unsupported")
+    if x.numel() >= 1 << 31 or out_size <= 0:
+        raise ValueError(f"{name}: stream length out of range")
+    return K, F, out_ch
 
 
 def poly_fir_il(
@@ -135,19 +187,9 @@ def poly_fir_il(
         return poly_fir_il_plain(x_il, poly_w, decimation, out_size, k_block=k_block)
     if x_il.device.type != "cuda":
         raise ValueError(f"poly_fir_il: unsupported device {x_il.device}")
-    K, F, out_ch = poly_w.shape
-    if poly_w.device != x_il.device:
-        raise ValueError("poly_fir_il: x_il and poly_w must be on one device")
-    if x_il.dtype != torch.float32 or poly_w.dtype != torch.float32:
-        raise ValueError("poly_fir_il: float32 inputs required")
-    if x_il.dim() != 1 or not x_il.is_contiguous() or not poly_w.is_contiguous():
-        raise ValueError("poly_fir_il: contiguous 1-D x_il and (K, F, O) poly_w required")
-    if F != 2 * decimation:
-        raise ValueError(f"poly_fir_il: poly_w has {F} features, expected {2 * decimation}")
-    if out_ch not in SUPPORTED_OUT:
-        raise ValueError(f"poly_fir_il: {out_ch} outputs per row unsupported")
-    if x_il.numel() >= 1 << 31 or out_size <= 0:
-        raise ValueError("poly_fir_il: stream length out of range")
+    if x_il.dim() != 1:
+        raise ValueError("poly_fir_il: 1-D x_il required")
+    K, F, out_ch = _check("poly_fir_il", x_il, poly_w, decimation, out_size)
     kb = choose_k_block(K, F, out_ch) if k_block is None else max(1, min(K, int(k_block)))
     out = torch.empty((out_ch, out_size), dtype=torch.float32, device=x_il.device)
     rc = _library().iq2a_poly_fir_il(
@@ -161,3 +203,46 @@ def poly_fir_il(
 
 
 poly_fir_il.launches = 0
+
+
+def poly_fir_pair(
+    x_pair: torch.Tensor,
+    poly_w: torch.Tensor,
+    decimation: int,
+    out_size: int,
+    *,
+    k_block: int | None = None,
+) -> torch.Tensor:
+    """Decimating polyphase FIR of an (re, im) pair; the kernel reads the
+    ``(2, T, D) -> (T, 2D)`` relay in place.
+
+    Parameters
+    ----------
+    x_pair: float32 ``(2, L-1+N)`` input including the carried tail.
+    poly_w: float32 ``(K, 2D, 2C)`` = ``build_poly_kernel(kernel, D)`` of the
+        pair kernel ``(2C, 2, L)``.
+    k_block: taps staged per block; default from :func:`choose_k_block`.
+
+    Returns float32 ``(2C, out_size)``.  A CPU tensor goes through
+    :func:`poly_fir_pair_plain`; a CUDA tensor through the kernel, or raises.
+    """
+    if x_pair.device.type == "cpu":
+        return poly_fir_pair_plain(x_pair, poly_w, decimation, out_size, k_block=k_block)
+    if x_pair.device.type != "cuda":
+        raise ValueError(f"poly_fir_pair: unsupported device {x_pair.device}")
+    if x_pair.dim() != 2 or x_pair.shape[0] != 2:
+        raise ValueError("poly_fir_pair: (2, n) x_pair required")
+    K, F, out_ch = _check("poly_fir_pair", x_pair, poly_w, decimation, out_size)
+    kb = choose_k_block(K, F, out_ch) if k_block is None else max(1, min(K, int(k_block)))
+    out = torch.empty((out_ch, out_size), dtype=torch.float32, device=x_pair.device)
+    rc = _library().iq2a_poly_fir_pair(
+        x_pair.data_ptr(), x_pair.shape[1], poly_w.data_ptr(), out.data_ptr(),
+        out_size, K, F, out_ch, kb, torch.cuda.current_stream(x_pair.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"poly_fir_pair: CUDA error {rc} at launch")
+    poly_fir_pair.launches += 1
+    return out
+
+
+poly_fir_pair.launches = 0

@@ -1,6 +1,6 @@
 """Pipeline orchestration: config, filter design, the chunk step and loop."""
 
 from .config import ProcessingConfig
-from .pipeline import ProcessingPipeline, ProcessingResult
+from .pipeline import ProcessingCancelled, ProcessingPipeline, ProcessingResult
 
-__all__ = ["ProcessingConfig", "ProcessingPipeline", "ProcessingResult"]
+__all__ = ["ProcessingCancelled", "ProcessingConfig", "ProcessingPipeline", "ProcessingResult"]

@@ -10,9 +10,9 @@ built for one package builds for the other.  Two fields differ in meaning:
 * ``fft_workers`` and ``filter_block``/``auto_filter_block`` are accepted
   and ignored (the port's only channelizer is the polyphase FIR).
 
-Fields whose feature the port does not carry yet (checkpoint/resume,
-dump-iq, stage plots, the profiler hook, extra targets) are kept so the
-pipeline can reject them by name (see ``ROADMAP.md``).
+Fields whose feature the port does not carry yet (dump-iq, stage plots,
+the profiler hook) are kept so the pipeline can reject them by name (see
+``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -59,9 +59,10 @@ class ProcessingConfig:
     device: str | None = None
     #: profiler trace directory (not carried by the port yet)
     profile_dir: Path | None = None
-    #: checkpoint cadence in seconds of input (not carried by the port yet)
+    #: checkpoint cadence in seconds of input; the checkpoint is written
+    #: next to output 0 as ``<output>.ckpt``
     checkpoint_secs: float | None = None
-    #: resume from a checkpoint (not carried by the port yet)
+    #: resume from that checkpoint when it exists
     resume: bool = False
     #: process only the input window starting at this absolute complex-sample
     #: index; the NCO is phase-seeded from the absolute index.

@@ -1,26 +1,34 @@
 """Streaming pipeline orchestrator (port of the JAX package's
-``pipeline/pipeline.py``, reduced to one NFM target).
+``pipeline/pipeline.py``).
 
 Drives the chunk step (:mod:`.step`) from a host loop with:
 
+* one to five target frequencies batched through one channelizer pass
+  (leading channel axis), one output WAV each,
 * dispatch groups of ``super_chunks`` chunks, each uploaded from a pinned
   staging buffer with ``non_blocking=True``,
 * one device-to-host copy per accumulation window, started behind the
-  window's compute and drained one window later,
+  window's compute and drained one window later (checkpointed runs drain
+  each window before the next is dispatched),
 * exact host-side sample bookkeeping (valid counts for the padded final
   chunk and the resampler come from Python ints, never device syncs),
+* progress phases, cooperative cancel with partial-output cleanup, and
+  checkpoint/resume,
 * the end-of-file resampler flush.
 
 Not carried yet, each rejected with :class:`NotImplementedError` (see
-``ROADMAP.md``): checkpoint/resume, pass-through, IQ dumps, stage plots,
-progress sinks and cancel, more than one target, and the profiler hook.
+``ROADMAP.md``): pass-through, IQ dumps, stage plots and the profiler hook.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
 import logging
 import math
+import os
+import pickle
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -28,6 +36,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..convert import state_from_jax, state_to_jax
 from ..demod import DecoderStats, create_decoder
 from ..io.formats import InputFormatSpec, resolve_input_format
 from ..io.probe import SampleRateProbe, probe_sample_rate
@@ -40,11 +49,17 @@ from ..ref.chain import choose_mix_sign
 from ..utils.freq import detect_center_frequency
 from .config import ProcessingConfig
 from .filters import compute_decimation, design_channel_filter, tune_chunk_size
+from .progress import PhaseState, ProgressSink, ProgressTracker
 from .step import build_chunk_step
 
 LOG = logging.getLogger(__name__)
 
+# layout of the port's checkpoint (state as numpy in the JAX package's
+# layout, counters, RMS); bump when it changes
+_CKPT_VERSION = 1
+
 _OUTPUT_RATE = 48_000.0
+_MAX_TARGETS = 5
 
 
 @dataclass
@@ -86,9 +101,11 @@ def resolve_device(requested: str | None) -> torch.device:
     return device
 
 
-def _unsupported(cfg: ProcessingConfig, progress_sink) -> str | None:
-    if cfg.checkpoint_secs or cfg.resume:
-        return "checkpoint/resume"
+class ProcessingCancelled(RuntimeError):  # noqa: N818 - the JAX package's name
+    """Raised when processing is aborted early by user request."""
+
+
+def _unsupported(cfg: ProcessingConfig) -> str | None:
     if (cfg.demod_mode or "").lower() in {"none", "pass", "iq"}:
         return "pass-through (--demod none)"
     if cfg.dump_iq_path is not None:
@@ -97,11 +114,20 @@ def _unsupported(cfg: ProcessingConfig, progress_sink) -> str | None:
         return "stage plots"
     if cfg.profile_dir is not None:
         return "the profiler hook"
-    if cfg.extra_target_freqs or cfg.extra_output_paths:
-        return "more than one target"
-    if progress_sink is not None:
-        return "progress sinks and cancel"
     return None
+
+
+def _truncate_payload(path: Path, payload_bytes: int) -> None:
+    """Truncate a WAV's data payload to ``payload_bytes`` (resume)."""
+    from ..io.riff import parse_wav_header
+
+    path = Path(path)
+    if not path.exists():
+        return
+    info = parse_wav_header(path)
+    keep = min(payload_bytes, info.data_size)
+    with path.open("r+b") as f:
+        f.truncate(info.data_offset + keep)
 
 
 class _PinnedRing:
@@ -142,11 +168,46 @@ class _PinnedRing:
 class ProcessingPipeline:
     def __init__(self, config: ProcessingConfig):
         self.config = config
+        self._cancelled = False
         self._input_spec: InputFormatSpec | None = None
 
-    def run(self, progress_sink=None) -> ProcessingResult:
+    def cancel(self) -> None:
+        self._cancelled = True
+
+    # -- helpers -----------------------------------------------------------
+
+    def _target_freqs(self) -> list[float]:
+        return [f for f in self.config.all_target_freqs() if f and f > 0]
+
+    def _default_output_path(self, target_freq: float) -> Path:
+        return self.config.in_path.with_name(f"audio_{int(target_freq)}_48k.wav")
+
+    @staticmethod
+    def _annotate(base: Path, freq: float) -> Path:
+        return base.with_name(f"{base.stem}_{int(round(freq))}{base.suffix}")
+
+    def _channel_paths(self, freqs: list[float], base: Path | None) -> list[Path]:
+        """Per-channel output paths: an explicit extra path verbatim, else the
+        shared ``output_path`` suffixed with ``_<freq>`` when batching, else
+        the default name (reference cli ``annotate_path``)."""
+        paths: list[Path] = []
+        extras = self.config.extra_output_paths
+        multi = len(freqs) > 1
+        for i, freq in enumerate(freqs):
+            explicit = extras[i - 1] if i > 0 and i - 1 < len(extras) else None
+            if explicit is not None:
+                paths.append(Path(explicit))
+            elif base is not None:
+                paths.append(self._annotate(base, freq) if multi else base)
+            else:
+                paths.append(self._default_output_path(freq))
+        return paths
+
+    # -- main entry ----------------------------------------------------------
+
+    def run(self, progress_sink: ProgressSink | None = None) -> ProcessingResult:
         cfg = self.config
-        missing = _unsupported(cfg, progress_sink)
+        missing = _unsupported(cfg)
         if missing is not None:
             raise NotImplementedError(
                 f"{missing} is not ported to the torch pipeline yet (see ROADMAP.md)"
@@ -165,10 +226,67 @@ class ProcessingPipeline:
                 cfg.input_format = spec.codec
         input_spec = self._input_spec
 
+        tracker = ProgressTracker(progress_sink)
+        output_paths: list[Path] = []
+        cancel_logged = False
+
+        def request_cancel() -> None:
+            self._cancelled = True
+            tracker.cancel()
+            tracker.status("Cancelling…")
+
+        def check_cancel(stage: str) -> None:
+            nonlocal cancel_logged
+            if self._cancelled or tracker.cancelled:
+                self._cancelled = True
+                if not tracker.cancelled:
+                    tracker.cancel()
+                    tracker.status("Cancelling…")
+                if not cancel_logged:
+                    LOG.info("Processing cancelled during %s.", stage)
+                    cancel_logged = True
+                raise ProcessingCancelled("Processing cancelled by user.")
+
+        if progress_sink is not None:
+            with contextlib.suppress(AttributeError):
+                progress_sink.set_cancel_callback(request_cancel)
+
         manual_rate = cfg.input_sample_rate
         if manual_rate is not None and manual_rate <= 0:
             raise ValueError("Input sample rate override must be positive.")
 
+        audio_writers: list[AudioWriter] = []
+
+        def close_writers_quietly() -> None:
+            for w in audio_writers:
+                with contextlib.suppress(Exception):
+                    w.close()
+
+        try:
+            return self._run(
+                cfg, device, input_spec, manual_rate, tracker, check_cancel,
+                audio_writers, output_paths,
+            )
+        except ProcessingCancelled:
+            # delete partial outputs on cancel (reference processing.py:
+            # 1205-1211), unless checkpointing is on: the partial output and
+            # the checkpoint then let a later run resume
+            close_writers_quietly()
+            if not cfg.probe_only and not cfg.checkpoint_secs:
+                for p in output_paths:
+                    try:
+                        Path(p).unlink(missing_ok=True)
+                    except OSError:
+                        LOG.debug("Failed to remove cancelled output %s", p)
+            raise
+        finally:
+            close_writers_quietly()
+            tracker.close()
+
+    def _run(
+        self, cfg, device, input_spec, manual_rate, tracker, check_cancel,
+        audio_writers, output_paths,
+    ) -> ProcessingResult:
         # --- probing ---------------------------------------------------------
         if input_spec.container == "raw":
             if manual_rate is None:
@@ -225,14 +343,18 @@ class ProcessingPipeline:
             cfg.center_freq_source = detection.source
             LOG.info("Center frequency detected via %s.", detection.source)
 
-        target_freq = cfg.target_freq if cfg.target_freq > 0 else center_freq
-        freq_offset = target_freq - center_freq
+        freqs = self._target_freqs() or [center_freq]
+        if len(freqs) > _MAX_TARGETS:
+            raise ValueError("At most five target frequencies are supported per run.")
+        offsets = [f - center_freq for f in freqs]
+        target_freq, freq_offset = freqs[0], offsets[0]
         decimation, fs_channel = compute_decimation(sample_rate, cfg.fs_ch_target)
         LOG.info(
-            "Input %.2f Hz, center %.0f Hz, target %.0f Hz (offset %.0f Hz), "
-            "decimation %d -> %.2f Hz, device %s.",
-            sample_rate, center_freq, target_freq, freq_offset, decimation,
-            fs_channel, device,
+            "Input %.2f Hz, center %.0f Hz, target(s) %s (offset(s) %s Hz), "
+            "decimation %d -> %.2f Hz, %s, device %s.",
+            sample_rate, center_freq, "/".join(f"{f:.0f}" for f in freqs),
+            "/".join(f"{o:.0f}" for o in offsets), decimation, fs_channel,
+            cfg.demod_mode.upper(), device,
         )
 
         # --- geometry / plans ------------------------------------------------
@@ -249,8 +371,25 @@ class ProcessingPipeline:
             max_chunk=1 << 22,
         )
         chunk_size = ddc_plan.chunk_size
-        n_dec = ddc_plan.out_size
-        rs_plan = ResamplePlan.create(fs_channel, _OUTPUT_RATE, n_dec)
+        rs_plan = ResamplePlan.create(fs_channel, _OUTPUT_RATE, ddc_plan.out_size)
+
+        # --- checkpoint/resume: carried state + input offset -----------------
+        resume_data = None
+        ckpt_path: Path | None = None
+        if (cfg.checkpoint_secs or cfg.resume) and not cfg.probe_only:
+            ckpt_path = Path(str(self._channel_paths(freqs, cfg.output_path)[0]) + ".ckpt")
+        if cfg.resume and ckpt_path is not None and ckpt_path.exists():
+            with ckpt_path.open("rb") as f:
+                resume_data = pickle.load(f)
+            LOG.info(
+                "Resuming from %s (%.2f s of input already processed).",
+                ckpt_path, resume_data["counters"]["processed_samples"] / sample_rate,
+            )
+        resume_frames = resume_data["counters"]["processed_samples"] if resume_data else 0
+        if max_input_samples is not None and resume_frames:
+            # the reader seeks past the processed samples, so the window
+            # budget shrinks by the same amount
+            max_input_samples = max(0, max_input_samples - resume_frames)
 
         reader = IQReader(
             cfg.in_path,
@@ -258,90 +397,192 @@ class ProcessingPipeline:
             cfg.iq_order,
             input_spec,
             sample_rate=sample_rate if input_spec.container == "raw" else None,
-            start_frame=seg_start,
+            start_frame=seg_start + resume_frames,
             prefetch_depth=0,  # synchronous reads: no Python thread beside dispatch
         )
-        audio_writers: list[AudioWriter] = []
-        try:
-            with reader:
-                total_input_samples = float(reader.total_frames)
-                if max_input_samples is not None:
-                    total_input_samples = (
-                        float(min(total_input_samples, max_input_samples))
-                        if total_input_samples > 0
-                        else float(max_input_samples)
-                    )
-                estimated_chunks = (
-                    int(math.ceil(total_input_samples / chunk_size))
+        with reader:
+            total_input_samples = float(reader.total_frames)
+            if max_input_samples is not None:
+                total_input_samples = (
+                    float(min(total_input_samples, max_input_samples))
                     if total_input_samples > 0
-                    else 0
+                    else float(max_input_samples)
+                )
+            estimated_chunks = (
+                int(math.ceil(total_input_samples / chunk_size))
+                if total_input_samples > 0
+                else 0
+            )
+            channel_samples = total_input_samples / max(decimation, 1)
+            tracker.start([
+                PhaseState("ingest", "Ingest IQ", total_input_samples, unit="samples"),
+                PhaseState("channel", "Channelize", channel_samples, unit="samples"),
+                PhaseState("demod", "Demodulate", channel_samples, unit="samples"),
+                PhaseState(
+                    "encode", "Encode Audio",
+                    max(total_input_samples / sample_rate * _OUTPUT_RATE, 0.0),
+                    unit="samples",
+                ),
+            ])
+            tracker.status("init dsp")
+            check_cancel("initialization")
+
+            # --- warm-up: first block + mixer sign ---------------------------
+            raw_first = reader.read_block_raw()
+            if raw_first is None or raw_first.size == 0:
+                raise RuntimeError("Input stream produced no samples.")
+            if resume_data is not None:
+                mix_sign = resume_data["mix_sign"]
+            elif cfg.mix_sign_override in (1, -1):
+                mix_sign = cfg.mix_sign_override
+            else:
+                probe_len = min(
+                    raw_first.size // 2,
+                    max(int(sample_rate * 0.05), len(taps) * 4, 131_072),
+                )
+                warm = convert_to_complex(
+                    raw_first[: 2 * probe_len], input_spec.codec, cfg.iq_order
+                )
+                mix_sign = choose_mix_sign(warm, sample_rate, freq_offset, taps, decimation)
+            LOG.info("Selected mixer sign %d based on warm-up snippet.", mix_sign)
+            check_cancel("warm-up")
+            if cfg.probe_only:
+                tracker.advance("ingest", raw_first.size // 2)
+                return ProcessingResult(
+                    sample_rate_probe=probe,
+                    center_freq=center_freq,
+                    target_freq=target_freq,
+                    freq_offset=freq_offset,
+                    decimation=decimation,
+                    fs_channel=fs_channel,
+                    mix_sign=mix_sign,
+                    audio_peak=0.0,
                 )
 
-                # --- warm-up: first block + mixer sign -----------------------
-                raw_first = reader.read_block_raw()
-                if raw_first is None or raw_first.size == 0:
-                    raise RuntimeError("Input stream produced no samples.")
-                if cfg.mix_sign_override in (1, -1):
-                    mix_sign = cfg.mix_sign_override
-                else:
-                    probe_len = min(
-                        raw_first.size // 2,
-                        max(int(sample_rate * 0.05), len(taps) * 4, 131_072),
+            # --- writers -----------------------------------------------------
+            output_paths.extend(self._channel_paths(freqs, cfg.output_path))
+            for p in output_paths:
+                p.parent.mkdir(parents=True, exist_ok=True)
+            appending = resume_data is not None
+            if appending:
+                # outputs may hold windows flushed after the checkpoint:
+                # truncate back to the checkpointed position (mono s16)
+                for p in output_paths:
+                    _truncate_payload(p, resume_data["counters"]["rs_emitted"] * 2)
+            audio_writers.extend(AudioWriter(p, append=appending) for p in output_paths)
+            if appending:
+                for w, st in zip(audio_writers, resume_data["rms"]):
+                    w.seed_rms(*st)
+
+            # --- build the device step ---------------------------------------
+            incs = [nco_increment_fixed(off, sample_rate, sign=mix_sign) for off in offsets]
+            decoder = create_decoder(
+                cfg.demod_mode, deemph_us=cfg.deemph_us, agc_enabled=cfg.agc_enabled
+            )
+            decoder.setup(fs_channel)
+            checkpointing = bool(cfg.checkpoint_secs) and ckpt_path is not None
+            # a resumed run sizes its windows as the interrupted run did (for
+            # the whole input window, not the part left), so acc_chunks and
+            # the fingerprint agree
+            geometry_chunks = int(math.ceil((total_input_samples + resume_frames) / chunk_size))
+            step = build_chunk_step(
+                ddc_plan=ddc_plan,
+                rs_plan=rs_plan,
+                ddc_kernel_np=bandpass_kernel(taps, incs),
+                rs_kernel_np=(
+                    None if rs_plan.identity
+                    else design_resampler_kernel(rs_plan.up, rs_plan.down)
+                ),
+                incs_fixed=incs,
+                codec=input_spec.codec,
+                iq_order=cfg.iq_order,
+                decoder=decoder,
+                device=device,
+                est_total_chunks=(
+                    None if cfg.fixed_device_geometry else (geometry_chunks or None)
+                ),
+                # checkpoints land on window boundaries: windows no longer
+                # than the checkpoint cadence
+                acc_chunks_cap=(
+                    max(1, int(cfg.checkpoint_secs * sample_rate // chunk_size))
+                    if checkpointing else None
+                ),
+            )
+            fingerprint = {
+                # input identity + window: a resume against another capture
+                # or window is rejected, not spliced
+                "in_path": str(Path(cfg.in_path).resolve()),
+                "in_size": os.stat(cfg.in_path).st_size,
+                "in_start": seg_start,
+                "in_num": cfg.input_num_samples,
+                "deemph_us": cfg.deemph_us,
+                "chunk": chunk_size,
+                "decimation": decimation,
+                "sample_rate": sample_rate,
+                "bandwidth": cfg.bandwidth,
+                "taps_sha": hashlib.sha1(taps.tobytes()).hexdigest(),
+                "mode": cfg.demod_mode.lower(),
+                "agc": cfg.agc_enabled,
+                "incs": tuple(incs),
+                "codec": input_spec.codec,
+                "iq_order": cfg.iq_order,
+                "acc_chunks": step.acc_chunks,
+            }
+            if resume_data is not None:
+                if resume_data.get("version") != _CKPT_VERSION:
+                    raise ValueError(
+                        f"Checkpoint {ckpt_path} was written by an incompatible "
+                        "version (state layout changed); remove it or rerun "
+                        "without --resume."
                     )
-                    warm = convert_to_complex(
-                        raw_first[: 2 * probe_len], input_spec.codec, cfg.iq_order
+                if resume_data["fingerprint"] != fingerprint:
+                    raise ValueError(
+                        f"Checkpoint {ckpt_path} does not match this "
+                        "configuration; remove it or rerun without --resume."
                     )
-                    mix_sign = choose_mix_sign(warm, sample_rate, freq_offset, taps, decimation)
-                LOG.info("Selected mixer sign %d based on warm-up snippet.", mix_sign)
-                if cfg.probe_only:
-                    return ProcessingResult(
-                        sample_rate_probe=probe,
-                        center_freq=center_freq,
-                        target_freq=target_freq,
-                        freq_offset=freq_offset,
-                        decimation=decimation,
-                        fs_channel=fs_channel,
-                        mix_sign=mix_sign,
-                        audio_peak=0.0,
+            on_drained = None
+            if checkpointing:
+                cadence = int(cfg.checkpoint_secs * sample_rate)
+                next_ckpt = [resume_frames + cadence]
+
+                def on_drained(st) -> None:
+                    # the phased schedule calls this after every drain, when
+                    # the written audio, the counters and ``st`` agree
+                    if loop.processed_samples < next_ckpt[0]:
+                        return
+                    payload = {
+                        "version": _CKPT_VERSION,
+                        "fingerprint": fingerprint,
+                        "mix_sign": mix_sign,
+                        "state": state_to_jax(st),
+                        "rms": [w.rms_state for w in audio_writers],
+                        "counters": loop.counters(),
+                    }
+                    tmp = ckpt_path.with_suffix(".ckpt.tmp")
+                    with tmp.open("wb") as f:
+                        pickle.dump(payload, f)
+                    tmp.replace(ckpt_path)
+                    next_ckpt[0] = loop.processed_samples + cadence
+                    LOG.info(
+                        "Checkpoint written at %.2f s of input (%s).",
+                        loop.processed_samples / sample_rate, ckpt_path,
                     )
 
-                out_path = cfg.output_path or cfg.in_path.with_name(
-                    f"audio_{int(target_freq)}_48k.wav"
-                )
-                out_path.parent.mkdir(parents=True, exist_ok=True)
-                audio_writers = [AudioWriter(out_path)]
-
-                # --- build the device step -----------------------------------
-                incs = [nco_increment_fixed(freq_offset, sample_rate, sign=mix_sign)]
-                decoder = create_decoder(
-                    cfg.demod_mode, deemph_us=cfg.deemph_us, agc_enabled=cfg.agc_enabled
-                )
-                decoder.setup(fs_channel)
-                step = build_chunk_step(
-                    ddc_plan=ddc_plan,
-                    rs_plan=rs_plan,
-                    ddc_kernel_np=bandpass_kernel(taps, incs),
-                    rs_kernel_np=(
-                        None if rs_plan.identity
-                        else design_resampler_kernel(rs_plan.up, rs_plan.down)
-                    ),
-                    incs_fixed=incs,
-                    codec=input_spec.codec,
-                    iq_order=cfg.iq_order,
-                    decoder=decoder,
-                    device=device,
-                    est_total_chunks=(
-                        None if cfg.fixed_device_geometry else (estimated_chunks or None)
-                    ),
-                )
-                loop = _ChunkLoop(step, reader, raw_first, max_input_samples, decimation)
-                loop_start = time.perf_counter()
-                loop.run(audio_writers)
-                loop_seconds = time.perf_counter() - loop_start
-                decoder.finalize()
-                for w in audio_writers:
-                    w.close()
-        finally:
+            loop = _ChunkLoop(
+                step, reader, raw_first, max_input_samples, decimation,
+                tracker=tracker, check_cancel=check_cancel, on_drained=on_drained,
+            )
+            state = step.init_state(seg_start)
+            if resume_data is not None:
+                state = state_from_jax(resume_data["state"], device)
+                loop.restore(resume_data["counters"])
+            loop_start = time.perf_counter()
+            loop.run(audio_writers, state)
+            loop_seconds = time.perf_counter() - loop_start
+            if ckpt_path is not None and not loop.limit_exhausted:
+                ckpt_path.unlink(missing_ok=True)  # the run completed
+            tracker.status("flush outputs")
+            decoder.finalize()
             for w in audio_writers:
                 w.close()
 
@@ -352,10 +593,12 @@ class ProcessingPipeline:
             )
         peaks = [w.peak for w in audio_writers]
         rms_list = [w.rms_dbfs for w in audio_writers]
-        LOG.info(
-            "[%d] Audio peak level %.2f dBFS, RMS %.2f dBFS.",
-            int(target_freq), 20.0 * math.log10(max(peaks[0], 1e-6)), rms_list[0],
-        )
+        for freq, pk, rms in zip(freqs, peaks, rms_list):
+            LOG.info(
+                "[%d] Audio peak level %.2f dBFS, RMS %.2f dBFS.",
+                int(freq), 20.0 * math.log10(max(pk, 1e-6)), rms,
+            )
+        tracker.status("Processing complete")
         return ProcessingResult(
             sample_rate_probe=probe,
             center_freq=center_freq,
@@ -367,7 +610,7 @@ class ProcessingPipeline:
             audio_peak=peaks[0],
             audio_peaks=peaks,
             stats=[DecoderStats(rms_dbfs=r) for r in rms_list],
-            output_paths=[out_path],
+            output_paths=list(output_paths),
             loop_seconds=loop_seconds,
             input_samples=loop.processed_samples,
             dispatched_chunks=loop.dispatched,
@@ -375,17 +618,44 @@ class ProcessingPipeline:
 
 
 class _ChunkLoop:
-    """The window / group / chunk loop with its exact host counters."""
+    """The window / group / chunk loop with its exact host counters.
 
-    def __init__(self, step, reader, raw_first, max_input_samples, decimation):
+    With ``on_drained`` each window is drained before the next one is
+    dispatched, and then ``on_drained(state)`` is called: the written
+    audio, the counters and the state then describe one point of the stream
+    (the checkpoint's schedule).  Otherwise each window is drained one
+    window later, behind the next window's compute.
+    """
+
+    _COUNTERS = ("processed_samples", "dec_emitted", "rs_in_device", "rs_in_valid", "rs_emitted")
+
+    def __init__(
+        self, step, reader, raw_first, max_input_samples, decimation, *,
+        tracker, check_cancel, on_drained=None,
+    ):
         self.step = step
         self.reader = reader
         self.raw_first = raw_first
         self.max_input_samples = max_input_samples
         self.decimation = decimation
+        self.tracker = tracker
+        self.check_cancel = check_cancel
+        self.on_drained = on_drained
         self.limit_exhausted = False
-        self.processed_samples = 0
         self.dispatched = 0
+        # exact host mirrors of the stream position
+        self.processed_samples = 0  # complex input samples consumed
+        self.dec_emitted = 0  # decimated samples counted as valid
+        self.rs_in_device = 0  # decimated samples consumed by the device
+        self.rs_in_valid = 0  # decimated samples that were real (not pad)
+        self.rs_emitted = 0  # 48 kHz samples written so far
+
+    def counters(self) -> dict:
+        return {k: getattr(self, k) for k in self._COUNTERS}
+
+    def restore(self, counters: dict) -> None:
+        for k in self._COUNTERS:
+            setattr(self, k, int(counters[k]))
 
     def _raw_blocks(self):
         """Valid-sliced, silence-padded raw blocks (owned arrays)."""
@@ -447,7 +717,7 @@ class _ChunkLoop:
         if batch:
             yield batch
 
-    def run(self, audio_writers: list[AudioWriter]) -> None:
+    def run(self, audio_writers: list[AudioWriter], state: dict) -> None:
         step = self.step
         device = step.device
         rs_plan = step.rs_plan
@@ -455,20 +725,16 @@ class _ChunkLoop:
         acc_chunks = step.acc_chunks
         audio_cap = step.audio_capacity
         decimation = self.decimation
+        tracker = self.tracker
         raw_dtype = torch.from_numpy(self.raw_first[:0]).dtype
 
-        state = step.init_state(int(self.reader.start_frame))
         accs = step.init_accs()
         uploads = _PinnedRing(
             (step.super_chunks, 2 * step.chunk_size), raw_dtype, device
         )
         downloads = _PinnedRing(tuple(accs["audio"].shape), torch.int16, device)
-        rs_in_device = 0  # decimated samples consumed by the device
-        rs_in_valid = 0  # decimated samples that were real (not pad)
-        rs_emitted = 0  # 48 kHz samples written so far
-        dec_emitted = 0
         idx = 0  # device-consumed chunks
-        pending = None  # (host buffer slot, counts) drained one window later
+        pending = None  # (host buffer slot, counts) of a window not yet written
         last_audio: dict = {}
 
         def drain(slot_i, counts):
@@ -481,6 +747,11 @@ class _ChunkLoop:
             last_audio.update(buf=audio_np, slot=len(counts) - 1, count=counts[-1][1])
 
         for wgroups in self._windows():
+            self.check_cancel(f"chunk {idx + 1}")
+            if self.on_drained is not None and pending is not None:
+                drain(*pending)
+                pending = None
+                self.on_drained(state)
             window = []
             for group in wgroups:
                 # stage and upload the group (async H2D from pinned memory)
@@ -492,25 +763,36 @@ class _ChunkLoop:
                 uploads.record(ui)
                 # exact host bookkeeping (Python ints, no syncs)
                 slot_base = idx % acc_chunks
-                rs_offset = rs_plan.chunk_offset(rs_in_device) if not rs_plan.identity else 0
+                rs_offset = (
+                    rs_plan.chunk_offset(self.rs_in_device) if not rs_plan.identity else 0
+                )
+                group_valid = group_dec = group_audio = 0
                 for valid_frames, _blk in group:
                     self.processed_samples += valid_frames
                     dec_total = -(-self.processed_samples // decimation)  # ceil
-                    dec_valid = dec_total - dec_emitted
-                    dec_emitted = dec_total
+                    dec_valid = dec_total - self.dec_emitted
+                    self.dec_emitted = dec_total
                     if not rs_plan.identity:
-                        audio_count = rs_plan.out_count(rs_in_device, dec_valid)
-                        rs_in_device += n_dec
-                        rs_in_valid += dec_valid
-                        rs_emitted += audio_count
+                        audio_count = rs_plan.out_count(self.rs_in_device, dec_valid)
+                        self.rs_in_device += n_dec
+                        self.rs_in_valid += dec_valid
                     else:
                         audio_count = dec_valid
+                    self.rs_emitted += audio_count
                     window.append((dec_valid, audio_count))
+                    group_valid += valid_frames
+                    group_dec += dec_valid
+                    group_audio += audio_count
                 if step.super_chunks > 1:
                     state = step.fn_super(state, accs, raw_dev, rs_offset, slot_base)
                 else:
                     state = step.fn(state, accs, raw_dev[0], rs_offset, slot_base)
                 idx += len(group)
+                # progress from the host counters: no device sync
+                tracker.advance("ingest", float(group_valid))
+                tracker.advance("channel", float(group_dec))
+                tracker.advance("demod", float(group_dec))
+                tracker.advance("encode", float(group_audio))
             # one D2H per window, queued behind its compute on the stream
             host, di = downloads.next()
             host.copy_(accs["audio"], non_blocking=True)
@@ -518,6 +800,7 @@ class _ChunkLoop:
             if pending is not None:
                 drain(*pending)
             pending = (di, window)
+            self.check_cancel(f"chunk {idx} encode")
         if pending is not None:
             drain(*pending)
         self.dispatched = idx
@@ -525,7 +808,8 @@ class _ChunkLoop:
         if not rs_plan.identity and "buf" in last_audio:
             # EOF flush: outputs of the final (incomplete) resampler block
             # exist in the last padded accumulator slot
-            extra = rs_plan.final_flush_count(rs_in_valid, rs_emitted)
+            rs_emitted = self.rs_emitted
+            extra = rs_plan.final_flush_count(self.rs_in_valid, rs_emitted)
             if extra > 0:
                 buf = last_audio["buf"]
                 if n_dec % rs_plan.down == 0:

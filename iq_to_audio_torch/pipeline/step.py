@@ -1,9 +1,9 @@
-"""The chunk step: scale -> polyphase-FIR DDC -> NFM demod -> polyphase
-resample -> s16 encode, on one device, with the stream state carried as a
-dict of tensors.
+"""The chunk step: scale -> polyphase-FIR DDC -> demod (NFM, AM, USB/LSB)
+-> polyphase resample -> s16 encode, on one device, for one to five
+channels, with the stream state carried as a dict of tensors.
 
-Port of the JAX package's ``pipeline/step.py`` main path (NFM, audio out,
-no pass-through, no IQ dump, no stage snapshots).  PyTorch runs eagerly, so
+Port of the JAX package's ``pipeline/step.py`` (audio out; no pass-through,
+no IQ dump, no stage snapshots).  PyTorch runs eagerly, so
 the JAX ``lax.scan`` superstep is a Python loop over the chunks of one
 dispatch group and the accumulator slot is written in place.
 """
@@ -163,10 +163,12 @@ def build_chunk_step(
     decoder: Decoder,
     device: torch.device,
     est_total_chunks: int | None = None,
+    acc_chunks_cap: int | None = None,
 ) -> ChunkStep:
     """Geometry (8-chunk accumulation windows split into dispatch groups,
     as the JAX package sizes them for accelerators) and device constants.
-    The channelizer is always the polyphase FIR."""
+    ``acc_chunks_cap`` bounds the window (checkpoints land on window
+    boundaries).  The channelizer is always the polyphase FIR."""
     c = len(incs_fixed)
     cap = (
         ddc_plan.out_size
@@ -180,6 +182,8 @@ def build_chunk_step(
         acc_chunks = max(1, min(acc_chunks, pow2))
     # each window's deferred drain is backpressure that keeps uploads shallow
     acc_chunks = min(acc_chunks, 8)
+    if acc_chunks_cap is not None:
+        acc_chunks = max(1, min(acc_chunks, acc_chunks_cap))
     if est_total_chunks is not None and est_total_chunks > 0:
         # ~6 dispatch groups per capture
         super_chunks = min(acc_chunks, max(1, -(-est_total_chunks // 6)))

@@ -199,3 +199,71 @@ def test_mix_and_advance_phase_exact():
         np.testing.assert_array_equal(phase_t.numpy(), np.asarray(phase_j).astype(np.int64))
         assert error_db(yrt.numpy(), np.asarray(yrj)) < -100.0
         assert error_db(yit.numpy(), np.asarray(yij)) < -100.0
+
+
+def _pair_inputs(decim, offsets, n_chunks, seed):
+    """A pair-input DDC geometry at 250 kHz and ``n_chunks`` chunks of a
+    seeded (re, im) pair."""
+    fs = 250_000.0
+    taps = tfilters.design_channel_filter(fs, 12_500.0, decim)
+    plan = tddc.DDCPlan.create(len(taps), decim, target_chunk=decim * 1_500)
+    incs = [tnco.nco_increment_fixed(o, fs) for o in offsets]
+    kernel = tddc.bandpass_kernel(taps, incs)
+    rng = np.random.default_rng(seed)
+    x = rng.normal(scale=0.3, size=(2, n_chunks * plan.chunk_size)).astype(np.float32)
+    tail = rng.normal(scale=0.3, size=(2, plan.overlap)).astype(np.float32)
+    inc_lo = np.asarray([(i * decim) % (1 << 32) for i in incs], np.uint32)
+    phase = np.asarray([(i * 977) % (1 << 32) for i in incs], np.uint32)
+    return plan, kernel, x, tail, phase, inc_lo
+
+
+@pytest.mark.parametrize("decim", [4, 26])
+@pytest.mark.parametrize("offsets", [(25_000.0,), (25_000.0, -40_000.0)])
+@pytest.mark.parametrize("poly", [False, True])
+def test_ddc_apply_matches_jax_conv(decim, offsets, poly):
+    """The pair-input channelizer entry point, through conv1d or through
+    the polyphase FIR, against the JAX package's conv branch: baseband
+    within -100 dB, carried tail exact, phase exact."""
+    plan, kernel, x, tail, phase, inc_lo = _pair_inputs(decim, offsets, 1, seed=decim)
+    yrj, yij, tailj, phj = jddc.ddc_apply(
+        plan, jnp.asarray(kernel), jnp.asarray(x[0]), jnp.asarray(x[1]),
+        jnp.asarray(tail), jnp.asarray(phase), jnp.asarray(inc_lo),
+    )
+    poly_w = torch.from_numpy(tpoly.build_poly_kernel(kernel, decim)) if poly else None
+    yrt, yit, tailt, pht = tddc.ddc_apply(
+        plan, torch.from_numpy(kernel), torch.from_numpy(x[0]), torch.from_numpy(x[1]),
+        torch.from_numpy(tail), torch.from_numpy(phase.astype(np.int64)),
+        torch.from_numpy(inc_lo.astype(np.int64)), poly_w=poly_w,
+    )
+    assert yrt.shape == (len(offsets), plan.out_size)
+    assert error_db(yrt.numpy(), np.asarray(yrj)) < -100.0
+    assert error_db(yit.numpy(), np.asarray(yij)) < -100.0
+    np.testing.assert_array_equal(tailt.numpy(), np.asarray(tailj))
+    np.testing.assert_array_equal(pht.numpy(), np.asarray(phj).astype(np.int64))
+
+
+@pytest.mark.parametrize("poly", [False, True])
+def test_ddc_apply_chunked_equals_whole(poly):
+    """Three chunks carrying the tail and phase equal one call over the
+    three chunks (-100 dB)."""
+    decim = 26
+    plan, kernel, x, tail, phase, inc_lo = _pair_inputs(decim, (25_000.0, -40_000.0), 3, 5)
+    k = torch.from_numpy(kernel)
+    poly_w = torch.from_numpy(tpoly.build_poly_kernel(kernel, decim)) if poly else None
+    inc_t = torch.from_numpy(inc_lo.astype(np.int64))
+    tail_t, ph_t = torch.from_numpy(tail), torch.from_numpy(phase.astype(np.int64))
+    parts_r, parts_i = [], []
+    n = plan.chunk_size
+    for c in range(3):
+        xr, xi = (torch.from_numpy(x[i, c * n : (c + 1) * n]) for i in range(2))
+        yr, yi, tail_t, ph_t = tddc.ddc_apply(plan, k, xr, xi, tail_t, ph_t, inc_t, poly_w=poly_w)
+        parts_r.append(yr)
+        parts_i.append(yi)
+    whole_plan = tddc.DDCPlan(plan.num_taps, decim, 3 * n)
+    wr, wi, wtail, wph = tddc.ddc_apply(
+        whole_plan, k, torch.from_numpy(x[0]), torch.from_numpy(x[1]), torch.from_numpy(tail),
+        torch.from_numpy(phase.astype(np.int64)), inc_t, poly_w=poly_w,
+    )
+    assert error_db(torch.cat(parts_r, -1).numpy(), wr.numpy()) < -100.0
+    assert error_db(torch.cat(parts_i, -1).numpy(), wi.numpy()) < -100.0
+    assert torch.equal(tail_t, wtail) and torch.equal(ph_t, wph)

@@ -283,10 +283,10 @@ def test_default_device_needs_a_card(tmp_path):
 @pytest.mark.parametrize(
     "field,value",
     [
-        ("demod_mode", "usb"),
         ("demod_mode", "none"),
-        ("checkpoint_secs", 1.0),
-        ("extra_target_freqs", [CENTER]),
+        ("dump_iq_path", Path("chan.cf32")),
+        ("plot_stages_path", Path("stages.png")),
+        ("profile_dir", Path("trace")),
     ],
 )
 def test_unported_features_raise(tmp_path, field, value):
@@ -306,6 +306,10 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'iq_to_audio_tpu'))]\n"
         "assert not bad, bad\n"
+        "new = ['iq_to_audio_torch.demod.am', 'iq_to_audio_torch.demod.ssb',\n"
+        "       'iq_to_audio_torch.pipeline.progress']\n"
+        "missing = [k for k in new if k not in sys.modules]\n"
+        "assert not missing, missing\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120

@@ -1,5 +1,6 @@
 """The port's polyphase-FIR channelizer against the JAX package's Pallas
-kernel (``pallas_poly_fir_il``, run in interpret mode on the CPU).
+kernels (``pallas_poly_fir_il`` over the interleaved stream and
+``pallas_poly_fir`` over an (re, im) pair, run in interpret mode on the CPU).
 
 On the CPU the wrapper takes the plain torch version; the CUDA kernel is
 held against that plain version on the card in ``test_torch_cuda.py``.
@@ -118,8 +119,58 @@ def test_choose_k_block_rejects_too_wide():
         tpoly.choose_k_block(10, 2000, 10)
 
 
-def test_poly_fir_rejects_unsupported_device():
-    x = torch.zeros(8, device="meta")
+@pytest.mark.parametrize("fn", ["poly_fir_il", "poly_fir_pair"])
+def test_poly_fir_rejects_unsupported_device(fn):
+    x = torch.zeros((8,) if fn == "poly_fir_il" else (2, 4), device="meta")
     w = torch.zeros((1, 2, 2), device="meta")
     with pytest.raises(ValueError, match="device"):
-        tpoly.poly_fir_il(x, w, 1, 4)
+        getattr(tpoly, fn)(x, w, 1, 4)
+
+
+def _pair(taps, channels, decim, out_size, seed=0):
+    """An (re, im) pair with a random carried tail, and the polyphase tensor
+    of its pair bandpass kernel for ``channels`` offsets."""
+    offsets = [25_000.0 - 17_000.0 * c for c in range(channels)]
+    incs = [nco_increment_fixed(o, FS) for o in offsets]
+    poly = tpoly.build_poly_kernel(bandpass_kernel(taps, incs), decim)
+    n = out_size * decim
+    x = make_tone_iq(FS, (n + 10) / FS, 10_000.0, seed=seed)[:n]
+    tail = np.random.default_rng(seed).normal(scale=0.3, size=(2, len(taps) - 1))
+    x_pair = np.concatenate([tail, np.stack([x.real, x.imag])], axis=1).astype(np.float32)
+    return x_pair, poly
+
+
+@pytest.mark.parametrize("decim", [4, 26])
+@pytest.mark.parametrize("channels", [1, 2, 5])
+def test_poly_fir_pair_plain_matches_pallas(decim, channels):
+    """The pair wrapper on the CPU (its plain version: relay with torch ops,
+    then the plain tap loop) against ``pallas_poly_fir``: < -100 dB."""
+    taps = design_channel_filter(FS, 12_500.0, decim)
+    out_size = 300
+    x_pair, poly = _pair(taps, channels, decim, out_size, seed=decim + channels)
+    with _Interpret():
+        want = jpallas.pallas_poly_fir(jnp.asarray(x_pair), jnp.asarray(poly), decim, out_size)
+    got = tpoly.poly_fir_pair(torch.from_numpy(x_pair), torch.from_numpy(poly), decim, out_size)
+    assert got.shape == (2 * channels, out_size)
+    assert error_db(got.numpy(), np.asarray(want)) < -100.0
+
+
+def test_poly_fir_pair_plain_equals_relayed_il():
+    """The pair layout is the interleaved layout of the relayed stream:
+    feeding ``X[t, i*D + p] = x_pair[i, D*t + p]`` flattened to the
+    interleaved wrapper gives the same rows, at any tap block."""
+    decim = 26
+    taps = design_channel_filter(FS, 12_500.0, decim)
+    out_size = 200
+    x_pair, poly = _pair(taps, 2, decim, out_size, seed=4)
+    K = poly.shape[0]
+    t_need = out_size + K - 1
+    relayed = np.ascontiguousarray(
+        x_pair[:, : t_need * decim].reshape(2, t_need, decim).transpose(1, 0, 2).reshape(-1)
+    )
+    want = tpoly.poly_fir_il(torch.from_numpy(relayed), torch.from_numpy(poly), decim, out_size)
+    for kb in (None, 1, 5):
+        got = tpoly.poly_fir_pair_plain(
+            torch.from_numpy(x_pair), torch.from_numpy(poly), decim, out_size, k_block=kb
+        )
+        assert error_db(got.numpy(), want.numpy()) < -120.0
