@@ -9,10 +9,13 @@ script exits non-zero:
 2. build every hand-written kernel from ``iq_to_audio_torch/csrc`` (one
    ``nvcc`` per source, all started together);
 3. hold each kernel against its plain torch version on the card at the
-   main paths' shapes (< -100 dB), and time the kernel, the plain version
-   and the one PyTorch call that computes the same function: the
-   interleaved channelizer at one, two and five channels and with a long
-   filter, and the pair-input channelizer at one and five channels;
+   main paths' shapes (< -100 dB, and two identical launches bit for bit),
+   and time the kernel, the plain version and the one PyTorch call that
+   computes the same function: the interleaved channelizer at one, two and
+   five channels and with a long filter, the pair-input channelizer at one
+   and five channels, a wide geometry (25 MS/s, decimation 260) and ragged
+   ones (an output count that is no multiple of 4; a pair whose second row
+   is 4-byte aligned only);
 4. drive each path end to end, with every launch count set to 0 just
    before and read just after:
    a. ``run_benchmark`` on a 10 s synthetic 2.5 MS/s s16 capture with one
@@ -26,7 +29,11 @@ script exits non-zero:
       against the twin's RMS, on one 10 s capture made here;
    e. a checkpointed run cancelled by a progress sink after ~5 s of input
       and resumed: its WAVs must be byte-identical to an uninterrupted run;
-5. the ``{"kernels": [...]}`` line, then the card line, then the
+5. the device time of one ``chunk_step`` at one and at five channels (CUDA
+   events, then ``torch.profiler`` for the busy time) beside the kernel's
+   share of it: last, so that no path above runs with the profiler's
+   tracing attached to the process;
+6. the ``{"kernels": [...]}`` line, then the card line, then the
    ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the JAX package.
@@ -48,6 +55,7 @@ import numpy as np
 import torch
 
 from iq_to_audio_torch import ProcessingCancelled, ProcessingConfig, ProcessingPipeline
+from iq_to_audio_torch.demod import create_decoder
 from iq_to_audio_torch.io.writer import read_wav, write_stereo_wav
 from iq_to_audio_torch.ops import _cuda_build
 from iq_to_audio_torch.ops.ddc import (
@@ -66,10 +74,11 @@ from iq_to_audio_torch.ops.poly_fir import (
     poly_fir_pair,
     poly_fir_pair_plain,
 )
-from iq_to_audio_torch.ops.resample import ResamplePlan
+from iq_to_audio_torch.ops.resample import ResamplePlan, design_resampler_kernel
 from iq_to_audio_torch.pipeline.benchmark import run_benchmark
 from iq_to_audio_torch.pipeline.filters import compute_decimation, design_channel_filter
 from iq_to_audio_torch.pipeline.progress import ProgressSink
+from iq_to_audio_torch.pipeline.step import build_chunk_step
 from iq_to_audio_torch.ref.chain import RefResampler, ref_demod_chain
 
 SAMPLE_RATE = 2_500_000.0
@@ -86,11 +95,11 @@ FLAGSHIP_M = 161_250
 TWIN_SECONDS = 2.0
 
 # Data-sheet peaks (dense, no sparsity) by H100 part: FP32 outside the
-# tensor cores in FLOP/s, and device memory in bytes/s.
+# tensor cores and TF32 on them in FLOP/s, and device memory in bytes/s.
 _PEAKS = {
-    "PCIe": (51e12, 2.0e12),
-    "NVL": (60e12, 3.9e12),
-    "SXM": (67e12, 3.35e12),
+    "PCIe": (51e12, 378e12, 2.0e12),
+    "NVL": (60e12, 417.5e12, 3.9e12),
+    "SXM": (67e12, 495e12, 3.35e12),
 }
 
 
@@ -116,7 +125,7 @@ def card_line() -> str:
     return torch.cuda.get_device_name(0)
 
 
-def peaks_for(name: str) -> tuple[float, float, str]:
+def peaks_for(name: str) -> tuple[float, float, float, str]:
     for key in ("PCIe", "NVL"):
         if key in name:
             return (*_PEAKS[key], key)
@@ -161,27 +170,29 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-def check_poly_fir(label: str, bandwidth: float, offsets, peaks, layout: str = "il") -> dict:
-    """One geometry of the channelizer at the flagship chunk length, over
-    the interleaved stream (``poly_fir_il``) or an (re, im) pair
-    (``poly_fir_pair``)."""
-    flops_peak, bytes_peak, _ = peaks
-    decim, _ = compute_decimation(SAMPLE_RATE, 96_000.0)
-    taps = design_channel_filter(SAMPLE_RATE, bandwidth, decim)
-    incs = [nco_increment_fixed(o, SAMPLE_RATE) for o in offsets]
+def check_poly_fir(label: str, bandwidth: float, offsets, peaks, layout: str = "il", *,
+                   sample_rate: float = SAMPLE_RATE, m: int = FLAGSHIP_M, extra: int = 0) -> dict:
+    """One geometry of the channelizer, over the interleaved stream
+    (``poly_fir_il``) or an (re, im) pair (``poly_fir_pair``): ``m`` output
+    rows (the flagship chunk's by default), ``extra`` samples beyond the
+    stream's length (the pair's second row then starts off a 16-byte
+    boundary)."""
+    fp32_peak, tf32_peak, bytes_peak, _ = peaks
+    decim, _ = compute_decimation(sample_rate, 96_000.0)
+    taps = design_channel_filter(sample_rate, bandwidth, decim)
+    incs = [nco_increment_fixed(o, sample_rate) for o in offsets]
     kernel = bandpass_kernel(taps, incs)
-    m = FLAGSHIP_M
     n = m * decim
     L = len(taps)
     rng = np.random.default_rng(1234)
     if layout == "il":
         kernel = interleave_kernel(kernel, "iq")
         poly = build_poly_kernel(kernel, 2 * decim)
-        shape, stride = (2 * (L - 1) + 2 * n,), 2 * decim
+        shape, stride = (2 * (L - 1) + 2 * n + extra,), 2 * decim
         fn, plain = poly_fir_il, poly_fir_il_plain
     else:
         poly = build_poly_kernel(kernel, decim)
-        shape, stride = (2, L - 1 + n), decim
+        shape, stride = (2, L - 1 + n + extra), decim
         fn, plain = poly_fir_pair, poly_fir_pair_plain
     raw = rng.integers(-32768, 32767, shape, endpoint=True, dtype=np.int16)
     x = (torch.from_numpy(raw).cuda().to(torch.float32) * (1.0 / 32768.0)).contiguous()
@@ -191,13 +202,16 @@ def check_poly_fir(label: str, bandwidth: float, offsets, peaks, layout: str = "
     lib_x = x.reshape(1, -1, shape[-1])
 
     got = fn(x, w, decim, m)
+    again = fn(x, w, decim, m)
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{fn.__name__} {label}: two identical launches differ")
     want = plain(x, w, decim, m)
     torch.cuda.synchronize()
 
     def library():
         with torch.backends.cudnn.flags(allow_tf32=False):
-            return torch.nn.functional.conv1d(lib_x, kt, stride=stride)[0]
+            return torch.nn.functional.conv1d(lib_x, kt, stride=stride)[0, :, :m]
 
     lib = library()
     torch.cuda.synchronize()
@@ -207,12 +221,16 @@ def check_poly_fir(label: str, bandwidth: float, offsets, peaks, layout: str = "
         raise AssertionError(f"{fn.__name__} {label}: {err:.1f} dB against the plain version")
     if not lib_err < -100.0:
         raise AssertionError(f"conv1d yardstick {label}: {lib_err:.1f} dB against plain")
-    ms = time_ms(lambda: fn(x, w, decim, m), iters=20)
+    ms = time_ms(lambda: fn(x, w, decim, m), iters=50, warm=5)
     plain_ms = time_ms(lambda: plain(x, w, decim, m), iters=5, warm=1)
     library_ms = time_ms(library, iters=20)
+    # useful operations only: no zeros of the shifted form, no padding
     flops = 2.0 * m * K * F * out_ch
     nbytes = 4.0 * (x.numel() + w.numel() + out_ch * m)
-    t_ops, t_bytes = flops / flops_peak, nbytes / bytes_peak
+    t_fp32, t_tf32x3 = flops / fp32_peak, 3.0 * flops / tf32_peak
+    t_ops, t_bytes = min(t_fp32, t_tf32x3), nbytes / bytes_peak
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    k_block = choose_k_block(K, F, out_ch, m, sm_count)
     row = {
         "phase": "kernel_check",
         "kernel": fn.__name__,
@@ -222,17 +240,96 @@ def check_poly_fir(label: str, bandwidth: float, offsets, peaks, layout: str = "
         "F": F,
         "O": out_ch,
         "m": m,
-        "k_block": choose_k_block(K, F, out_ch),
+        "k_block": k_block,
         "err_db": err,
         "library_err_db": lib_err,
         "max_abs_err": float((got - want).abs().max()),
+        "bit_identical": True,
         "kernel_ms": ms,
         "plain_ms": plain_ms,
         "library_ms": library_ms,
         "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_fp32_ms": 1e3 * max(t_fp32, t_bytes),
         "gflop": flops / 1e9,
         "mbytes": nbytes / 1e6,
+    }
+    emit(row)
+    return row
+
+
+def step_device_time(fn, steps: int) -> tuple[float | None, dict]:
+    """Device-busy milliseconds per call of ``fn`` (the sum of all kernels'
+    and copies' own device time under ``torch.profiler``) and the six
+    largest by name; ``(None, {})`` where the profiler reports no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    per_op = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:  # an operator's row repeats its kernels' time
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            per_op[ev.key] = per_op.get(ev.key, 0.0) + us / 1e3 / steps
+    if not per_op:
+        return None, {}
+    top = dict(sorted(per_op.items(), key=lambda kv: -kv[1])[:6])
+    return sum(per_op.values()), {k[:60]: v for k, v in top.items()}
+
+
+def time_chunk_step(channels: int, kernel_row: dict) -> dict:
+    """Device milliseconds of one flagship ``chunk_step`` (s16 in, NFM,
+    s16 audio out) from CUDA events, beside the channelizer kernel's time at
+    the same geometry (``kernel_row``, from phase 3)."""
+    decim, fs_ch = compute_decimation(SAMPLE_RATE, 96_000.0)
+    taps = design_channel_filter(SAMPLE_RATE, 12_500.0, decim)
+    offsets = [OFFSET + 175_000.0 * c * (-1) ** c for c in range(channels)]
+    incs = [nco_increment_fixed(o, SAMPLE_RATE) for o in offsets]
+    ddc_plan = DDCPlan(len(taps), decim, FLAGSHIP_M * decim)
+    rs_plan = ResamplePlan.create(fs_ch, 48_000.0, ddc_plan.out_size)
+    decoder = create_decoder("nfm", deemph_us=300.0, agc_enabled=True)
+    decoder.setup(fs_ch)
+    step = build_chunk_step(
+        ddc_plan=ddc_plan, rs_plan=rs_plan, ddc_kernel_np=bandpass_kernel(taps, incs),
+        rs_kernel_np=design_resampler_kernel(rs_plan.up, rs_plan.down), incs_fixed=incs,
+        codec="pcm_s16le", iq_order="iq", decoder=decoder, device=torch.device("cuda"),
+        est_total_chunks=6,
+    )
+    rng = np.random.default_rng(99)
+    raw = torch.from_numpy(
+        rng.integers(-20_000, 20_000, 2 * ddc_plan.chunk_size, dtype=np.int16)
+    ).cuda()
+    accs = step.init_accs()
+    box = {"state": step.init_state()}
+
+    def one():
+        box["state"] = step.fn(box["state"], accs, raw, 0, 0)
+
+    reset_counts()
+    ms = time_ms(one, iters=10)
+    launches = read_counts()["poly_fir_il"]
+    if launches != 12 or not torch.isfinite(box["state"]["peak"]).all():
+        raise AssertionError(f"chunk_step C={channels}: {launches} launches, peak not finite")
+    busy_ms, top = step_device_time(one, steps=5)
+    row = {
+        "phase": "chunk_step",
+        "channels": channels,
+        "m": FLAGSHIP_M,
+        "chunk_step_ms": ms,
+        "kernel_ms": kernel_row["kernel_ms"],
+        "kernel_share": kernel_row["kernel_ms"] / ms,
+        "launches_timed": launches,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": None if busy_ms is None else max(0.0, 1.0 - busy_ms / ms),
+        "top_device_ops_ms": top,
     }
     emit(row)
     return row
@@ -614,6 +711,7 @@ def kernel_entry(name: str, replaces: str, launches: int, row: dict, **extra) ->
         "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
+        "bound_fp32_ms": row["bound_fp32_ms"],
         "library_ms": row["library_ms"],
     }
 
@@ -629,16 +727,21 @@ def main() -> int:
     peaks = peaks_for(card)
     emit({"phase": "card", "nvidia_smi": card, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "peak_part": peaks[2],
-          "fp32_flops": peaks[0], "mem_bytes_per_s": peaks[1]})
+          "cuda": torch.version.cuda, "peak_part": peaks[3],
+          "fp32_flops": peaks[0], "tf32_flops": peaks[1], "mem_bytes_per_s": peaks[2]})
     build_all()
     flagship = check_poly_fir("flagship C=1", 12_500.0, (OFFSET,), peaks)
     check_poly_fir("C=2", 12_500.0, (OFFSET, -40_000.0), peaks)
     five = [OFFSET, 175_000.0, -350_000.0, 525_000.0, -700_000.0]
-    check_poly_fir("C=5", 12_500.0, five, peaks)
+    batch = check_poly_fir("C=5", 12_500.0, five, peaks)
     check_poly_fir("long filter K=385", 2_000.0, (OFFSET,), peaks)
     pair = check_poly_fir("pair C=1", 12_500.0, (OFFSET,), peaks, layout="pair")
     check_poly_fir("pair C=5", 12_500.0, five, peaks, layout="pair")
+    # 25 MS/s at the 96 kHz channel target: 520 features per row
+    check_poly_fir("wide D=260", 12_500.0, (OFFSET,), peaks, sample_rate=25e6, m=16_125)
+    check_poly_fir("ragged m=161249", 12_500.0, (OFFSET,), peaks, m=161_249, extra=3)
+    check_poly_fir("pair ragged, row 4-byte aligned", 12_500.0, (OFFSET,), peaks,
+                   layout="pair", m=161_249, extra=1)
     e2e = check_end_to_end()
     stream = check_ddc_apply()
     check_batch()
@@ -648,6 +751,8 @@ def main() -> int:
         make_modes_capture(capture)
         check_modes(capture, work)
         check_resume(capture, work)
+    time_chunk_step(1, flagship)
+    time_chunk_step(5, batch)
     emit({"kernels": [
         kernel_entry(
             "poly_fir_il", "iq_to_audio_tpu/ops/pallas_ddc.py:68",

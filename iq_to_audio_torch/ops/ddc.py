@@ -119,6 +119,45 @@ def interleave_kernel(kernel_np: np.ndarray, iq_order: str = "iq") -> np.ndarray
     return ki
 
 
+def j_lanes_kernel(kernel_il: np.ndarray, decimation: int, j_lanes: int) -> np.ndarray:
+    """Output-channel-augmented interleaved kernel: ``J`` consecutive
+    decimated outputs packed into the channel axis (stride ``J*2D``, width
+    ``2L + (J-1)*2D``); channel ``o*J + j`` of output block ``r`` is
+    plain-filter output ``(o, r*J + j)``.  A reference form: it only feeds
+    :func:`shift_matmul_kernel`; no path of the port runs it."""
+    out_ch, in_ch, width = kernel_il.shape
+    assert in_ch == 1, kernel_il.shape
+    d2 = 2 * decimation
+    wj = np.zeros((out_ch * j_lanes, 1, width + (j_lanes - 1) * d2), np.float32)
+    for o in range(out_ch):
+        for j in range(j_lanes):
+            wj[o * j_lanes + j, 0, j * d2 : j * d2 + width] = kernel_il[o, 0, :]
+    return wj
+
+
+def shift_matmul_kernel(kernel_il: np.ndarray, decimation: int, j_lanes: int) -> np.ndarray:
+    """Shifted-dense-matmul repack of :func:`j_lanes_kernel`: splitting the
+    tap axis at stride boundaries turns the banded product into
+    ``n_shift = ceil(width/stride)`` dense products over the contiguous
+    reshape ``A = x.reshape(rows, stride)``, ``Y[r] = sum_s A[r + s] @ W_s``.
+
+    Returns float32 ``(n_shift, stride, J*2C)``, columns channel-major
+    (``o*J + j``).  A reference form, run by no path of the port: the CUDA
+    channelizer computes this product with ``J = 4`` without building the
+    tensor, and the tests hold its indexer
+    (:func:`iq_to_audio_torch.ops.poly_fir.shifted_taps`) against this one.
+    """
+    wj = j_lanes_kernel(kernel_il, decimation, j_lanes)  # (J*2C, 1, width)
+    out_rows, _, width = wj.shape
+    stride = j_lanes * 2 * decimation
+    n_shift = -(-width // stride)
+    w = np.zeros((n_shift, stride, out_rows), np.float32)
+    for s in range(n_shift):
+        seg = wj[:, 0, s * stride : (s + 1) * stride]  # (J*2C, <=stride)
+        w[s, : seg.shape[1], :] = seg.T
+    return w
+
+
 def lowrate_osc(phase0_fixed: torch.Tensor, inc_lo_fixed: torch.Tensor, m: int):
     """(cos, sin) of the decimated-rate oscillator, shapes ``(..., m)``.
 

@@ -41,7 +41,7 @@ def _err_db(test, ref) -> float:
 
 
 def _inputs(bandwidth, offsets, out_size, decim=26, seed=0):
-    taps = design_channel_filter(FS, bandwidth, decim)
+    taps = design_channel_filter(FS * decim / 26, bandwidth, decim)
     incs = [nco_increment_fixed(o, FS) for o in offsets]
     poly = tpoly.build_poly_kernel(interleave_kernel(bandpass_kernel(taps, incs), "iq"), 2 * decim)
     n = 2 * (len(taps) - 1) + 2 * out_size * decim
@@ -74,12 +74,154 @@ def test_kernel_matches_plain(bandwidth, offsets, out_size):
 
 @pytest.mark.parametrize("k_block", [1, 7, 16])
 def test_kernel_forced_tap_blocks(k_block):
+    """``k_block`` taps per block, rounded up to whole super-taps: blocks of
+    1, 2 and 4 super-taps (odd and even counts, a ragged last block)."""
     dev = _card()
     x, w, decim = _inputs(12_500.0, (25_000.0,), 2_000)
     x, w = x.to(dev), w.to(dev)
     got = tpoly.poly_fir_il(x, w, decim, 2_000, k_block=k_block)
     want = tpoly.poly_fir_il_plain(x, w, decim, 2_000)
     assert _err_db(got.cpu(), want.cpu()) < -100.0
+
+
+@pytest.mark.parametrize("out_size", [1, 3, 63, 257, 161_249])
+@pytest.mark.parametrize("layout", ["il", "pair"])
+def test_kernel_ragged_rows(out_size, layout):
+    """Output counts that are no multiple of 4 and below one tile; rows past
+    the end are computed and not stored."""
+    dev = _card()
+    if layout == "il":
+        x, w, _ = _inputs(12_500.0, (25_000.0,), out_size)
+        fn, plain = tpoly.poly_fir_il, tpoly.poly_fir_il_plain
+    else:
+        x, w, _ = _pair_inputs((25_000.0,), out_size)
+        fn, plain = tpoly.poly_fir_pair, tpoly.poly_fir_pair_plain
+    x, w = x.to(dev), w.to(dev)
+    got = fn(x, w, 26, out_size)
+    assert got.shape == (2, out_size)
+    assert _err_db(got.cpu(), plain(x, w, 26, out_size).cpu()) < -100.0
+
+
+@pytest.mark.parametrize("decim", [25, 3, 260])
+@pytest.mark.parametrize("layout", ["il", "pair"])
+def test_kernel_odd_and_wide_decimation(decim, layout):
+    """Odd D (rows of the pair 4-byte aligned, a zero-padded last feature
+    block) and D = 260, wider than one tap of the former kernel could be."""
+    dev = _card()
+    out_size = 1_003
+    if layout == "il":
+        x, w, _ = _inputs(12_500.0, (25_000.0, -40_000.0), out_size, decim=decim)
+        fn, plain = tpoly.poly_fir_il, tpoly.poly_fir_il_plain
+    else:
+        x, w, _ = _pair_inputs((25_000.0, -40_000.0), out_size, decim=decim)
+        fn, plain = tpoly.poly_fir_pair, tpoly.poly_fir_pair_plain
+    x, w = x.to(dev), w.to(dev)
+    got = fn(x, w, decim, out_size)
+    assert _err_db(got.cpu(), plain(x, w, decim, out_size).cpu()) < -100.0
+
+
+@pytest.mark.parametrize("shift", [1, 2, 3])
+@pytest.mark.parametrize("layout", ["il", "pair"])
+def test_kernel_misaligned_input(shift, layout):
+    """A contiguous view that starts ``shift`` floats into its storage (and,
+    for the pair, rows of odd length): the kernel falls back to 8- or 4-byte
+    copies, not to the plain version."""
+    dev = _card()
+    out_size = 2_001
+    if layout == "il":
+        x, w, _ = _inputs(12_500.0, (25_000.0,), out_size)
+        x = torch.cat([torch.zeros(shift), x]).to(dev)[shift:]
+        fn, plain = tpoly.poly_fir_il, tpoly.poly_fir_il_plain
+    else:
+        x, w, _ = _pair_inputs((25_000.0,), out_size)
+        x = torch.cat([torch.zeros(2 * shift), x[:, : x.shape[1] - shift].reshape(-1)])
+        x = x.to(dev)[2 * shift :].view(2, -1)
+        fn, plain = tpoly.poly_fir_pair, tpoly.poly_fir_pair_plain
+    w = w.to(dev)
+    assert x.is_contiguous() and (layout == "pair" or x.data_ptr() % 16 != 0)
+    before = fn.launches
+    got = fn(x, w, 26, out_size)
+    assert fn.launches == before + 1
+    assert _err_db(got.cpu(), plain(x, w, 26, out_size).cpu()) < -100.0
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 4, 5])
+def test_kernel_every_output_width(channels):
+    """O = 2..10 outputs per row, both layouts, and two identical calls give
+    the same bits (no atomics, no reduction across CTAs)."""
+    dev = _card()
+    offsets = [25_000.0 - 17_000.0 * c for c in range(channels)]
+    x, w, _ = _inputs(12_500.0, offsets, 4_097)
+    xp, wp, _ = _pair_inputs(offsets, 4_097)
+    for fn, plain, a, b in (
+        (tpoly.poly_fir_il, tpoly.poly_fir_il_plain, x.to(dev), w.to(dev)),
+        (tpoly.poly_fir_pair, tpoly.poly_fir_pair_plain, xp.to(dev), wp.to(dev)),
+    ):
+        got = fn(a, b, 26, 4_097)
+        again = fn(a, b, 26, 4_097)
+        assert got.shape == (2 * channels, 4_097)
+        assert torch.equal(got, again)
+        assert _err_db(got.cpu(), plain(a, b, 26, 4_097).cpu()) < -100.0
+
+
+@pytest.mark.parametrize("layout", ["il", "pair"])
+@pytest.mark.parametrize("channels,out_size,k_block", [(1, 40_001, None), (5, 9_001, None), (2, 3_001, 7)])
+def test_kernel_many_tiles(layout, channels, out_size, k_block):
+    """Streams of 12 to 157 CTAs (fewer and more than the card has SMs), the
+    last tile ragged, twice with the same bits."""
+    dev = _card()
+    offsets = [25_000.0 - 17_000.0 * c for c in range(channels)]
+    if layout == "il":
+        x, w, _ = _inputs(12_500.0, offsets, out_size)
+        fn, plain = tpoly.poly_fir_il, tpoly.poly_fir_il_plain
+    else:
+        x, w, _ = _pair_inputs(offsets, out_size)
+        fn, plain = tpoly.poly_fir_pair, tpoly.poly_fir_pair_plain
+    x, w = x.to(dev), w.to(dev)
+    got = fn(x, w, 26, out_size, k_block=k_block)
+    assert torch.equal(got, fn(x, w, 26, out_size, k_block=k_block))
+    assert _err_db(got.cpu(), plain(x, w, 26, out_size).cpu()) < -100.0
+
+
+@pytest.mark.parametrize("layout", ["il", "pair"])
+def test_kernel_failed_launch_leaves_no_packed_taps(layout, monkeypatch):
+    """A call that fails inside the library (here: a tap block the card has
+    no shared memory for, let past the wrapper's own check) must not leave
+    its unfilled scratch behind as the packed taps: the next call with the
+    same tap tensor packs them and is right."""
+    dev = _card()
+    out_size = 1_000
+    offsets = [25_000.0 - 17_000.0 * c for c in range(5)]
+    if layout == "il":
+        x, w, _ = _inputs(2_000.0, offsets, out_size)
+        fn, plain = tpoly.poly_fir_il, tpoly.poly_fir_il_plain
+    else:
+        x, w, _ = _pair_inputs(offsets, out_size, bandwidth=2_000.0)
+        fn, plain = tpoly.poly_fir_pair, tpoly.poly_fir_pair_plain
+    x, w = x.to(dev), w.to(dev)
+    K = w.shape[0]
+    assert tpoly.smem_bytes(K, 52, 10) > 227 * 1024
+    before = fn.launches
+    with monkeypatch.context() as patch:
+        patch.setattr(tpoly, "smem_bytes", lambda *a: 0)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            fn(x, w, 26, out_size, k_block=K)
+    assert fn.launches == before and id(w) not in tpoly._PACKED
+    got = fn(x, w, 26, out_size)
+    assert fn.launches == before + 1 and id(w) in tpoly._PACKED
+    assert _err_db(got.cpu(), plain(x, w, 26, out_size).cpu()) < -100.0
+
+
+def test_kernel_repacks_taps_written_in_place():
+    """The split taps are kept per tap tensor; writing the tensor in place
+    must show in the next call."""
+    dev = _card()
+    x, w, decim = _inputs(12_500.0, (25_000.0,), 1_000)
+    x, w = x.to(dev), w.to(dev)
+    first = tpoly.poly_fir_il(x, w, decim, 1_000)
+    w.mul_(2.0)
+    second = tpoly.poly_fir_il(x, w, decim, 1_000)
+    assert _err_db(second.cpu(), (2.0 * first).cpu()) < -120.0
 
 
 def test_kernel_rejects_bad_inputs():
@@ -121,8 +263,8 @@ def test_pipeline_on_card_matches_cpu(tmp_path):
     assert np.abs(outs[0] - outs[1]).max() <= 1.5 / 32768
 
 
-def _pair_inputs(offsets, out_size, decim=26, seed=0):
-    taps = design_channel_filter(FS, 12_500.0, decim)
+def _pair_inputs(offsets, out_size, decim=26, seed=0, bandwidth=12_500.0):
+    taps = design_channel_filter(FS * decim / 26, bandwidth, decim)
     incs = [nco_increment_fixed(o, FS) for o in offsets]
     kernel = bandpass_kernel(taps, incs)
     n = len(taps) - 1 + out_size * decim
