@@ -29,11 +29,28 @@ script exits non-zero:
       against the twin's RMS, on one 10 s capture made here;
    e. a checkpointed run cancelled by a progress sink after ~5 s of input
       and resumed: its WAVs must be byte-identical to an uninterrupted run;
-5. the device time of one ``chunk_step`` at one and at five channels (CUDA
+5. one flagship chunk (one and five channels) through every channelizer
+   formulation of the port on the card: the hand kernel, the plain
+   ``conv1d``, the lane-filling J-conv, the shifted dense matmul and the
+   overlap-save FFT bank, each held against the hand kernel's output
+   (< -100 dB; the FFT bank < -90 dB) and timed with CUDA events;
+6. the other run modes on the flagship capture, each with the launch counts
+   set to 0 just before and read just after: a plain run (the reference
+   bytes), pass-through (``demod_mode="none"``) against the float64 twin's
+   DDC output, audio plus IQ dump in one run (audio byte-identical to the
+   plain run's, the dump against the twin), the stage snapshots of chunk 0
+   (``decimated`` bit for bit the hot path's output, ``filtered[::D]``
+   against it, ``mixed`` and ``filtered`` against the twin), the run with
+   ``IQ2A_CHANNELIZER=fft`` (no launch of the hand kernel, audio < -60 dB
+   against the plain run), and the command line as a subprocess (a run
+   whose WAV is byte-identical to the plain run's, and ``--benchmark``);
+7. ``measure_step_resident_msps`` at one and five channels;
+8. the device time of one ``chunk_step`` at one and at five channels (CUDA
    events, then ``torch.profiler`` for the busy time) beside the kernel's
-   share of it: last, so that no path above runs with the profiler's
-   tracing attached to the process;
-6. the ``{"kernels": [...]}`` line, then the card line, then the
+   share of it, and last a run with ``profile_dir`` (its trace must exist):
+   these come last, so that no path above runs with the profiler's tracing
+   attached to the process;
+9. the ``{"kernels": [...]}`` line, then the card line, then the
    ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the JAX package.
@@ -43,6 +60,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -62,10 +80,16 @@ from iq_to_audio_torch.ops.ddc import (
     MASK32,
     DDCPlan,
     bandpass_kernel,
+    bank_from_kernel,
+    complex_from_interleaved,
     ddc_apply,
+    fir_il,
     interleave_kernel,
+    j_lanes_kernel,
+    shift_matmul_kernel,
 )
 from iq_to_audio_torch.ops.nco import nco_increment_fixed
+from iq_to_audio_torch.ops.osfir import OverlapSavePlan, os_fir_bank
 from iq_to_audio_torch.ops.poly_fir import (
     build_poly_kernel,
     choose_k_block,
@@ -75,11 +99,20 @@ from iq_to_audio_torch.ops.poly_fir import (
     poly_fir_pair_plain,
 )
 from iq_to_audio_torch.ops.resample import ResamplePlan, design_resampler_kernel
-from iq_to_audio_torch.pipeline.benchmark import run_benchmark
+from iq_to_audio_torch.pipeline.benchmark import (
+    generate_synthetic_iq,
+    measure_step_resident_msps,
+    run_benchmark,
+)
 from iq_to_audio_torch.pipeline.filters import compute_decimation, design_channel_filter
 from iq_to_audio_torch.pipeline.progress import ProgressSink
 from iq_to_audio_torch.pipeline.step import build_chunk_step
-from iq_to_audio_torch.ref.chain import RefResampler, ref_demod_chain
+from iq_to_audio_torch.ref.chain import (
+    RefOscillator,
+    RefOverlapSaveFIR,
+    RefResampler,
+    ref_demod_chain,
+)
 
 SAMPLE_RATE = 2_500_000.0
 CENTER = 400_000_000.0
@@ -108,8 +141,9 @@ def emit(obj) -> None:
 
 
 def error_db(test: np.ndarray, ref: np.ndarray) -> float:
-    test = np.asarray(test, np.float64)
-    ref = np.asarray(ref, np.float64)
+    kind = np.complex128 if np.iscomplexobj(test) or np.iscomplexobj(ref) else np.float64
+    test = np.asarray(test, kind)
+    ref = np.asarray(ref, kind)
     num = float(np.linalg.norm(test - ref))
     den = float(np.linalg.norm(ref)) + 1e-30
     return 20.0 * math.log10(num / den + 1e-30)
@@ -574,9 +608,12 @@ def make_modes_capture(path: Path) -> None:
     write_stereo_wav(path, frames, int(SAMPLE_RATE), codec="pcm_s16le")
 
 
-def run_path(capture: Path, out: Path, offsets, mode: str, agc: bool, sink=None, **kw):
+def run_path(capture: Path, out: Path, offsets, mode: str, agc: bool, sink=None,
+             hand_kernel: bool = True, **kw):
     """One ``ProcessingPipeline.run`` on the card with the launch counts
-    set to 0 just before; returns ``(result, launches)``."""
+    set to 0 just before; returns ``(result, launches)``.  The hand kernel
+    must have launched once per dispatched chunk, or (``hand_kernel=False``,
+    a run pinned to another channelizer) not at all."""
     cfg = ProcessingConfig(
         in_path=capture, target_freq=CENTER + offsets[0],
         extra_target_freqs=[CENTER + o for o in offsets[1:]], center_freq=CENTER,
@@ -585,10 +622,11 @@ def run_path(capture: Path, out: Path, offsets, mode: str, agc: bool, sink=None,
     reset_counts()
     result = ProcessingPipeline(cfg).run(sink)
     launches = read_counts()
-    if launches["poly_fir_il"] != result.dispatched_chunks or result.dispatched_chunks <= 0:
+    want = result.dispatched_chunks if hand_kernel else 0
+    if launches["poly_fir_il"] != want or result.dispatched_chunks <= 0:
         raise AssertionError(
             f"{mode}: poly_fir_il launched {launches} times for "
-            f"{result.dispatched_chunks} dispatched chunks"
+            f"{result.dispatched_chunks} dispatched chunks (expected {want})"
         )
     return result, launches
 
@@ -698,6 +736,287 @@ def check_resume(capture: Path, work: Path) -> dict:
     return row
 
 
+def check_channelizers(label: str, offsets, kernel_row: dict) -> dict:
+    """One flagship chunk through every channelizer formulation of the port
+    on the card, from the same stream: each output against the hand
+    kernel's, and each one's device milliseconds (CUDA events) for the same
+    function, stream in and ``(2C, m)`` decimated filter output out."""
+    decim, _ = compute_decimation(SAMPLE_RATE, 96_000.0)
+    taps = design_channel_filter(SAMPLE_RATE, 12_500.0, decim)
+    L, m = len(taps), FLAGSHIP_M
+    n = m * decim
+    incs = [nco_increment_fixed(o, SAMPLE_RATE) for o in offsets]
+    pair_np = bandpass_kernel(taps, incs)
+    kil_np = interleave_kernel(pair_np, "iq")
+    j = min(max(1, 128 // kil_np.shape[0]), m)
+    os_plan = OverlapSavePlan.for_chunk(L, decim, n)  # power-of-two framing on the card
+    rng = np.random.default_rng(4321)
+    raw = rng.integers(-32768, 32767, 2 * (L - 1) + 2 * n, endpoint=True, dtype=np.int16)
+    x = (torch.from_numpy(raw).cuda().to(torch.float32) * (1.0 / 32768.0)).contiguous()
+    consts = {
+        "hand": {"poly_w": torch.from_numpy(build_poly_kernel(kil_np, 2 * decim)).cuda()},
+        "conv1d": {"kernel_il": torch.from_numpy(kil_np).cuda()},
+        "jconv": {"j_kernel": torch.from_numpy(j_lanes_kernel(kil_np, decim, j)).cuda(),
+                  "j_lanes": j},
+        "shift_matmul": {"mm_kernel": torch.from_numpy(shift_matmul_kernel(kil_np, decim, j)).cuda(),
+                         "j_lanes": j},
+    }
+    bank = torch.from_numpy(bank_from_kernel(pair_np, os_plan)).cuda()
+    fns = {name: (lambda kw=kw: fir_il(x, decim, m, L, **kw)) for name, kw in consts.items()}
+
+    def fft_bank():
+        xc = complex_from_interleaved(x, "iq")
+        dec, _ = os_fir_bank(os_plan, bank, xc[L - 1 :], xc[: L - 1])
+        return torch.view_as_real(dec).permute(0, 2, 1).reshape(-1, m)  # (2C, m)
+
+    fns["fft_bank"] = fft_bank
+    reset_counts()
+    hand = fns["hand"]()
+    torch.cuda.synchronize()
+    if read_counts()["poly_fir_il"] != 1:
+        raise AssertionError(f"channelizers {label}: the hand kernel did not launch")
+    hand_np = hand.cpu().numpy()
+    row = {"phase": "channelizers", "geometry": label, "m": m, "taps": L, "j_lanes": j,
+           "n_shift": int(consts["shift_matmul"]["mm_kernel"].shape[0]),
+           "mm_stride": int(consts["shift_matmul"]["mm_kernel"].shape[1]),
+           "fft_size": os_plan.fft_size, "fft_frames": os_plan.num_frames,
+           "fft_fold": os_plan.fold, "kernel_check_ms": kernel_row["kernel_ms"]}
+    for name, fn in fns.items():
+        out = fn()
+        torch.cuda.synchronize()
+        if tuple(out.shape) != tuple(hand.shape):
+            raise AssertionError(f"channelizers {label}: {name} gave {tuple(out.shape)}")
+        err = error_db(out.cpu().numpy(), hand_np)
+        limit = -90.0 if name == "fft_bank" else -100.0
+        if name != "hand" and not err < limit:
+            raise AssertionError(
+                f"channelizers {label}: {name} {err:.1f} dB against the hand kernel "
+                f"(limit {limit:.0f} dB)"
+            )
+        row[f"{name}_err_db"] = err
+        del out
+    for name, fn in fns.items():
+        row[f"{name}_ms"] = time_ms(fn, iters=20 if name == "hand" else 10, warm=3)
+    row["fastest"] = min(fns, key=lambda k: row[f"{k}_ms"])
+    emit(row)
+    return row
+
+
+def twin_ddc(iq: np.ndarray, offset: float, mix_sign: int):
+    """The float64 twin's mixed, filtered and decimated streams for one
+    channel.  The twin's oscillator runs at the frequency of the NCO's
+    uint32 increment (the grid frequency next to ``offset``), so that no
+    phase drift between the two oscillators enters the comparison."""
+    decim, _ = compute_decimation(SAMPLE_RATE, 96_000.0)
+    taps = design_channel_filter(SAMPLE_RATE, 12_500.0, decim)
+    inc = nco_increment_fixed(offset, SAMPLE_RATE, sign=mix_sign)
+    signed = inc - (1 << 32) if inc >= (1 << 31) else inc
+    grid_offset = -signed / float(1 << 32) * SAMPLE_RATE
+    mixed = RefOscillator(grid_offset, SAMPLE_RATE).mix(iq, 1)
+    filtered = RefOverlapSaveFIR(taps, 65_536).process(mixed)
+    return mixed, filtered, filtered[::decim]
+
+
+def check_modes_of_run(capture: Path, work: Path) -> dict:
+    """The run modes beside plain audio on the flagship capture: plain run,
+    pass-through, audio + IQ dump, the FFT channelizer."""
+    iq = head_iq(capture)
+    decim, _ = compute_decimation(SAMPLE_RATE, 96_000.0)
+    k_dec = int((TWIN_SECONDS - 0.05) * SAMPLE_RATE) // decim
+    plain, plain_launches = run_path(capture, work / "plain.wav", [OFFSET], "nfm", True)
+    plain_bytes = plain.output_paths[0].read_bytes()
+    _, _, twin_dec = twin_ddc(iq, OFFSET, plain.mix_sign)
+
+    # pass-through: the slice WAV keeps the capture's s16 codec
+    sliced, slice_launches = run_path(capture, work / "slice.wav", [OFFSET], "none", True)
+    frames, rate = read_wav(sliced.output_paths[0])
+    total_dec = -(-int(SECONDS * SAMPLE_RATE) // decim)
+    if rate != round(sliced.fs_channel) or frames.shape != (total_dec, 2):
+        raise AssertionError(f"pass_through: {frames.shape} frames at {rate} Hz")
+    got = frames[:k_dec, 0].astype(np.float64) + 1j * frames[:k_dec, 1]
+    slice_err = error_db(got, twin_dec[:k_dec])
+    if not slice_err < -60.0:
+        raise AssertionError(f"pass_through: {slice_err:.1f} dB against the twin's DDC output")
+    emit({"phase": "pass_through", "seconds": SECONDS, "frames": int(frames.shape[0]),
+          "twin_err_db": slice_err, "launches": slice_launches,
+          "dispatched_chunks": sliced.dispatched_chunks, "loop_seconds": sliced.loop_seconds,
+          "peak": sliced.audio_peak})
+
+    # audio and IQ dump in one run
+    dump_path = work / "chan.cf32"
+    dumped, dump_launches = run_path(
+        capture, work / "dumped.wav", [OFFSET], "nfm", True, dump_iq_path=dump_path
+    )
+    audio_identical = dumped.output_paths[0].read_bytes() == plain_bytes
+    dump = np.fromfile(dump_path, dtype=np.complex64)
+    dump_err = error_db(dump[:k_dec], twin_dec[:k_dec])
+    if not audio_identical or dump.size != total_dec or not dump_err < -90.0:
+        raise AssertionError(
+            f"dump_iq: audio identical {audio_identical}, {dump.size} samples, "
+            f"{dump_err:.1f} dB against the twin"
+        )
+    emit({"phase": "dump_iq", "samples": int(dump.size), "twin_err_db": dump_err,
+          "audio_byte_identical": audio_identical, "launches": dump_launches,
+          "loop_seconds": dumped.loop_seconds})
+
+    # the same run on the FFT channelizer: the hand kernel must not launch
+    os.environ["IQ2A_CHANNELIZER"] = "fft"
+    try:
+        fft, fft_launches = run_path(
+            capture, work / "fft.wav", [OFFSET], "nfm", True, hand_kernel=False
+        )
+    finally:
+        del os.environ["IQ2A_CHANNELIZER"]
+    a = read_wav(fft.output_paths[0])[0][:, 0]
+    b = read_wav(plain.output_paths[0])[0][:, 0]
+    fft_err = error_db(a, b) if a.size == b.size else float("inf")
+    if fft.channelizer != "fft" or not fft_err < -60.0:
+        raise AssertionError(f"fft_pipeline: {fft.channelizer}, {fft_err:.1f} dB against the plain run")
+    emit({"phase": "fft_pipeline", "err_vs_hand_kernel_run_db": fft_err, "launches": fft_launches,
+          "dispatched_chunks": fft.dispatched_chunks, "loop_seconds": fft.loop_seconds,
+          "hand_kernel_run_loop_seconds": plain.loop_seconds})
+    return {"plain": plain, "plain_launches": plain_launches, "plain_bytes": plain_bytes}
+
+
+def check_stages(capture: Path) -> dict:
+    """``fn_stages`` on chunk 0 of the flagship capture at full width."""
+    decim, fs_ch = compute_decimation(SAMPLE_RATE, 96_000.0)
+    taps = design_channel_filter(SAMPLE_RATE, 12_500.0, decim)
+    inc = nco_increment_fixed(OFFSET, SAMPLE_RATE)
+    ddc_plan = DDCPlan(len(taps), decim, FLAGSHIP_M * decim)
+    n = ddc_plan.chunk_size
+    rs_plan = ResamplePlan.create(fs_ch, 48_000.0, ddc_plan.out_size)
+    decoder = create_decoder("nfm", deemph_us=300.0, agc_enabled=True)
+    decoder.setup(fs_ch)
+    step = build_chunk_step(
+        ddc_plan=ddc_plan, rs_plan=rs_plan, ddc_kernel_np=bandpass_kernel(taps, [inc]),
+        rs_kernel_np=design_resampler_kernel(rs_plan.up, rs_plan.down), incs_fixed=[inc],
+        codec="pcm_s16le", iq_order="iq", decoder=decoder, device=torch.device("cuda"),
+        dump_iq=True, super_chunks=1, want_stages=True, est_total_chunks=6,
+    )
+    frames, _ = read_wav(capture)
+    iq = frames[:n, 0].astype(np.float64) + 1j * frames[:n, 1]
+    raw_np = np.round(frames[:n] * 32768.0).astype(np.int16).reshape(-1)
+    raw = torch.from_numpy(raw_np).cuda()
+    reset_counts()
+    hot_accs = step.init_accs()
+    step.fn(step.init_state(), hot_accs, raw, 0, 0)
+    accs = step.init_accs()
+    t0 = time.perf_counter()
+    _, stages = step.fn_stages(step.init_state(), accs, raw, 0, 0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    if launches["poly_fir_il"] != 2:
+        raise AssertionError(f"stages: poly_fir_il launched {launches} times for two steps")
+    m = FLAGSHIP_M
+    dec_r, dec_i = stages["decimated"]
+    bit_identical = bool(
+        torch.equal(dec_r, hot_accs["iq_r"][:, :m]) and torch.equal(dec_i, hot_accs["iq_i"][:, :m])
+        and torch.equal(accs["audio"], hot_accs["audio"])
+    )
+    dec = (dec_r[0] + 1j * dec_i[0]).cpu().numpy()
+    filt = (stages["filtered"][0][0] + 1j * stages["filtered"][1][0]).cpu().numpy()
+    mixed = (stages["mixed"][0][0] + 1j * stages["mixed"][1][0]).cpu().numpy()
+    t_mixed, t_filt, _ = twin_ddc(iq, OFFSET, 1)
+    errs = {
+        "filtered_strided_vs_decimated_db": error_db(filt[::decim], dec),
+        "mixed_vs_twin_db": error_db(mixed, t_mixed),
+        "filtered_vs_twin_db": error_db(filt, t_filt),
+        "decimated_vs_twin_db": error_db(dec, t_filt[::decim]),
+    }
+    shapes_ok = (
+        mixed.shape == filt.shape == (n,) and dec.shape == (m,)
+        and {"input", "demod", "audio"} <= set(stages)
+    )
+    if not (bit_identical and shapes_ok and errs["filtered_strided_vs_decimated_db"] < -100.0
+            and errs["mixed_vs_twin_db"] < -100.0 and errs["filtered_vs_twin_db"] < -90.0):
+        raise AssertionError(f"stages: bit identical {bit_identical}, shapes {shapes_ok}, {errs}")
+    row = {"phase": "stages", "chunk": n, "stage_names": sorted(stages),
+           "decimated_bit_identical": bit_identical, **errs, "launches": launches,
+           "fn_stages_seconds": seconds}
+    emit(row)
+    return row
+
+
+def check_cli(capture: Path, work: Path, plain_bytes: bytes) -> dict:
+    """The command line as a subprocess on the card: a run whose WAV equals
+    the API run's byte for byte, and the synthetic benchmark."""
+    out = work / "cli.wav"
+    base = [sys.executable, "-m", "iq_to_audio_torch", "--cli"]
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [*base, "--in", str(capture), "--fc", str(CENTER), "--ft", str(CENTER + OFFSET),
+         "--out", str(out)],
+        capture_output=True, text=True, timeout=600, cwd=Path(__file__).resolve().parent,
+    )
+    run_seconds = time.perf_counter() - t0
+    if run.returncode != 0 or not out.exists():
+        raise AssertionError(f"cli: exit {run.returncode}: {run.stderr[-2000:]}")
+    identical = out.read_bytes() == plain_bytes
+    if not identical or "Audio peak level" not in run.stdout:
+        raise AssertionError(f"cli: WAV byte-identical to the API run: {identical}; {run.stdout!r}")
+    t0 = time.perf_counter()
+    bench = subprocess.run(
+        [*base, "--benchmark", "--benchmark-seconds", "2"],
+        capture_output=True, text=True, timeout=600, cwd=Path(__file__).resolve().parent,
+    )
+    bench_seconds = time.perf_counter() - t0
+    if bench.returncode != 0 or "x realtime" not in bench.stdout:
+        raise AssertionError(f"cli --benchmark: exit {bench.returncode}: {bench.stderr[-2000:]}")
+    refused = subprocess.run(
+        [*base, "--in", str(capture), "--ft", str(CENTER + OFFSET), "--burst-segments", "4"],
+        capture_output=True, text=True, timeout=600, cwd=Path(__file__).resolve().parent,
+    )
+    if refused.returncode != 2 or "--burst-segments" not in refused.stderr:
+        raise AssertionError(f"cli: an unported flag exited {refused.returncode}")
+    row = {"phase": "cli", "wav_byte_identical": identical, "run_seconds": run_seconds,
+           "benchmark_seconds": bench_seconds, "benchmark_line": bench.stdout.strip().splitlines()[-1],
+           "unported_flag_exit": refused.returncode}
+    emit(row)
+    return row
+
+
+def check_resident() -> dict:
+    rows = {}
+    for channels in (1, 5):
+        reset_counts()
+        out = measure_step_resident_msps(SAMPLE_RATE, channels=channels, device="cuda")
+        launches = read_counts()["poly_fir_il"]
+        # a warm-up group, a rough pass of two and the timed pass
+        want = (out["reps"] + 3) * out["super_chunks"]
+        if launches != want or not out["msps"] > 0:
+            raise AssertionError(f"resident C={channels}: {launches} launches, expected {want}")
+        rows[str(channels)] = {**out, "launches": launches}
+    row = {"phase": "resident", **rows}
+    emit(row)
+    return row
+
+
+def check_profile(capture: Path, work: Path, plain_bytes: bytes) -> dict:
+    """A run with ``profile_dir``: the trace must be there, and the audio
+    must be the plain run's."""
+    trace_dir = work / "trace"
+    result, launches = run_path(
+        capture, work / "profiled.wav", [OFFSET], "nfm", True, profile_dir=trace_dir
+    )
+    trace = trace_dir / "chunk_loop.trace.json"
+    size = trace.stat().st_size if trace.exists() else 0
+    identical = result.output_paths[0].read_bytes() == plain_bytes
+    with trace.open() as f:
+        has_kernel = "poly_fir_kernel" in f.read()
+    if size <= 1_000 or not identical or not has_kernel:
+        raise AssertionError(
+            f"profile: trace of {size} bytes (names the hand kernel: {has_kernel}), "
+            f"audio identical {identical}"
+        )
+    row = {"phase": "profile", "trace_bytes": size, "trace_names_hand_kernel": has_kernel,
+           "audio_byte_identical": identical, "launches": launches,
+           "loop_seconds": result.loop_seconds}
+    emit(row)
+    return row
+
+
 def kernel_entry(name: str, replaces: str, launches: int, row: dict, **extra) -> dict:
     return {
         "name": name,
@@ -751,13 +1070,30 @@ def main() -> int:
         make_modes_capture(capture)
         check_modes(capture, work)
         check_resume(capture, work)
-    time_chunk_step(1, flagship)
-    time_chunk_step(5, batch)
+    chan1 = check_channelizers("flagship C=1", (OFFSET,), flagship)
+    chan5 = check_channelizers("C=5", five, batch)
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        capture = work / f"flagship_fc-{int(CENTER)}Hz.wav"
+        generate_synthetic_iq(capture, SAMPLE_RATE, SECONDS, OFFSET)
+        runs = check_modes_of_run(capture, work)
+        check_stages(capture)
+        check_cli(capture, work, runs["plain_bytes"])
+        check_resident()
+        time_chunk_step(1, flagship)
+        time_chunk_step(5, batch)
+        check_profile(capture, work, runs["plain_bytes"])
+    others = {
+        key: {"C=1": chan1[key], "C=5": chan5[key]}
+        for key in ("hand_ms", "conv1d_ms", "jconv_ms", "shift_matmul_ms", "fft_bank_ms")
+    }
     emit({"kernels": [
         kernel_entry(
             "poly_fir_il", "iq_to_audio_tpu/ops/pallas_ddc.py:68",
             e2e["launches"]["poly_fir_il"], flagship,
             also_replaces="iq_to_audio_tpu/ops/pallas_ddc.py:103",
+            shift_matmul_ms=chan1["shift_matmul_ms"], fft_bank_ms=chan1["fft_bank_ms"],
+            formulations_ms=others,
         ),
         kernel_entry(
             "poly_fir_pair", "iq_to_audio_tpu/ops/pallas_ddc.py:313",

@@ -6,6 +6,13 @@ uint32 NCO ``phase``, the float32 ``fir_tail``, the ``demod`` carries, the
 running ``peak`` and the resampler ``rs_tail``.  The port holds the same
 dict of tensors, with the uint32 phase as an ``int64`` masked to 32 bits
 (torch has no usable uint32 arithmetic).  Both directions are exact.
+
+The walk is over whatever keys the state holds, so the layouts of every
+step mode interchange: the interleaved ``(2(L-1),)`` tail of the FIR
+channelizers, the ``(2, L-1)`` pair tail of the ``fft`` channelizer, and a
+pass-through state (``phase`` and ``fir_tail`` only: no ``demod``, ``peak``
+or ``rs_tail``).  The output accumulators (int16 ``audio``, float32
+``iq_r``/``iq_i``) go through :func:`accs_from_jax`.
 """
 
 from __future__ import annotations
@@ -37,3 +44,17 @@ def state_to_jax(state) -> dict:
             raise ValueError("phase outside the uint32 range")
         return arr.astype(np.uint32)
     return arr.copy()
+
+
+def accs_from_jax(np_accs: dict, device) -> dict:
+    """The window accumulators of the JAX step (``ChunkStep.init_accs``
+    there, as numpy arrays) to tensors on ``device``: the s16 ``audio`` and
+    the float32 ``iq_r``/``iq_i`` of dump-iq and pass-through runs."""
+    out = {}
+    for name, value in np_accs.items():
+        arr = np.asarray(value)
+        want = np.int16 if name == "audio" else np.float32
+        if arr.dtype != want:
+            raise TypeError(f"accumulator {name!r}: expected {want.__name__}, got {arr.dtype}")
+        out[name] = torch.from_numpy(np.array(arr, copy=True)).to(device)
+    return out

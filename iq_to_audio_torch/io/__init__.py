@@ -4,8 +4,8 @@ Replaces the reference's external native trio — ffmpeg (decode/encode),
 ffprobe (probing), libsndfile (WAV IO); see reference ``processing.py:84-279``
 (IQReader), ``:381-524`` (AudioWriter), ``probe.py``, ``input_formats.py`` —
 with a first-party WAV/RIFF + raw parser, a double-buffered chunk reader and
-streaming WAV writers.  NumPy copies of the JAX package's modules; the
-ctypes fast path over ``native/libiqio.so`` is not carried by the port yet.
+streaming WAV writers.  NumPy copies of the JAX package's modules, with the
+optional ctypes fast path over ``native/iqio.cpp`` (:mod:`.native`).
 """
 
 from .formats import (

@@ -52,6 +52,16 @@ def convert_to_complex(raw: np.ndarray, codec: str, iq_order: str = "iq") -> np.
     """
     if iq_order not in {"iq", "qi", "iq_inv", "qi_inv"}:
         raise ValueError(f"Unsupported iq_order '{iq_order}'")
+    from .native import convert_deinterleave
+
+    pair = convert_deinterleave(raw, codec, iq_order)
+    if pair is not None:
+        # assemble in place: pair is float32, so one complex64 allocation
+        # and two stride-2 stores
+        out = np.empty(pair[0].shape, dtype=np.complex64)
+        out.real = pair[0]
+        out.imag = pair[1]
+        return out
     if codec == "pcm_u8":
         f = (raw.astype(np.float32) - 128.0) * np.float32(1.0 / 128.0)
     elif codec == "pcm_s16le":

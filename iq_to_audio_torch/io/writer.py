@@ -182,7 +182,13 @@ class AudioWriter:
         if payload.dtype == np.int16:  # already device-encoded
             self._writer.write_raw(payload.tobytes())
             return
-        self._writer.write_float(payload)
+        from .native import encode_s16
+
+        encoded = encode_s16(payload, clip=1.0)  # input pre-clipped
+        if encoded is not None:
+            self._writer.write_raw(encoded[0].tobytes())
+        else:
+            self._writer.write_float(payload)
 
     def _drain(self) -> None:
         while True:
@@ -250,6 +256,11 @@ class IQDebugWriter:
 
 def _encode_iq_raw(samples: np.ndarray, codec: str) -> bytes:
     """Raw IQ encoding rules (reference ``processing.py:527-539``)."""
+    from .native import interleave_encode
+
+    payload = interleave_encode(samples, codec)
+    if payload is not None:
+        return payload
     interleaved = np.empty(samples.size * 2, dtype=np.float32)
     interleaved[0::2] = samples.real
     interleaved[1::2] = samples.imag

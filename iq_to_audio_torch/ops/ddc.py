@@ -1,11 +1,20 @@
 """Digital downconverter: mix + channel filter + decimate as one decimating
 polyphase FIR over the raw interleaved sample stream.
 
-Port of the JAX package's ``ops/ddc.py`` main path.  Mixing commutes into
+Port of the JAX package's ``ops/ddc.py``.  Mixing commutes into
 the taps (``g[j] = h[j] * e^{-j*theta*j}``, :func:`bandpass_kernel`), so the
 full-rate NCO disappears: the raw stream is filtered by per-channel bandpass
-taps at stride ``2D`` (:func:`iq_to_audio_torch.ops.poly_fir.poly_fir_il`)
-and the oscillator runs only at the decimated rate (:func:`mix_and_advance`).
+taps at stride ``2D`` and the oscillator runs only at the decimated rate
+(:func:`mix_and_advance`).
+
+:func:`ddc_apply_il` carries the JAX package's four formulations of that
+filter: the hand-written polyphase FIR
+(:func:`iq_to_audio_torch.ops.poly_fir.poly_fir_il`, the card's default),
+the shifted dense matmul (:func:`shift_matmul_kernel`), the lane-filling
+J-conv (:func:`j_lanes_kernel`) and the plain strided ``conv1d``.
+:func:`ddc_apply_fft_il` / :func:`ddc_apply_fft` are the overlap-save FFT
+bank (:mod:`.osfir`), and :func:`ddc_fullrate_stages` the full-rate stages
+of the first-chunk snapshots.
 
 :func:`ddc_apply` is the pair-input entry point of the JAX package (an
 (re, im) pair with a ``(2, L-1)`` tail): through the same kernel over the
@@ -20,6 +29,7 @@ exact and the masked value equals the JAX package's uint32 bit for bit.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -123,8 +133,8 @@ def j_lanes_kernel(kernel_il: np.ndarray, decimation: int, j_lanes: int) -> np.n
     """Output-channel-augmented interleaved kernel: ``J`` consecutive
     decimated outputs packed into the channel axis (stride ``J*2D``, width
     ``2L + (J-1)*2D``); channel ``o*J + j`` of output block ``r`` is
-    plain-filter output ``(o, r*J + j)``.  A reference form: it only feeds
-    :func:`shift_matmul_kernel`; no path of the port runs it."""
+    plain-filter output ``(o, r*J + j)``.  Feeds the J-conv branch of
+    :func:`ddc_apply_il` and :func:`shift_matmul_kernel`."""
     out_ch, in_ch, width = kernel_il.shape
     assert in_ch == 1, kernel_il.shape
     d2 = 2 * decimation
@@ -142,9 +152,9 @@ def shift_matmul_kernel(kernel_il: np.ndarray, decimation: int, j_lanes: int) ->
     reshape ``A = x.reshape(rows, stride)``, ``Y[r] = sum_s A[r + s] @ W_s``.
 
     Returns float32 ``(n_shift, stride, J*2C)``, columns channel-major
-    (``o*J + j``).  A reference form, run by no path of the port: the CUDA
-    channelizer computes this product with ``J = 4`` without building the
-    tensor, and the tests hold its indexer
+    (``o*J + j``).  Feeds the shifted-matmul branch of :func:`ddc_apply_il`
+    (``torch.matmul``); the CUDA channelizer computes the same product with
+    ``J = 4`` without building the tensor, and the tests hold its indexer
     (:func:`iq_to_audio_torch.ops.poly_fir.shifted_taps`) against this one.
     """
     wj = j_lanes_kernel(kernel_il, decimation, j_lanes)  # (J*2C, 1, width)
@@ -156,6 +166,20 @@ def shift_matmul_kernel(kernel_il: np.ndarray, decimation: int, j_lanes: int) ->
         seg = wj[:, 0, s * stride : (s + 1) * stride]  # (J*2C, <=stride)
         w[s, : seg.shape[1], :] = seg.T
     return w
+
+
+def lane_formulation(device: torch.device | str = "cpu") -> str:
+    """Which lane-filling formulation ``build_chunk_step`` selects when it is not
+    given the hand kernel: ``"mm"`` (shifted dense matmul, the default on a
+    CUDA device) or ``"jconv"`` (:func:`j_lanes_kernel`, the default on the
+    CPU).  ``IQ2A_MM=1`` forces the matmul (even on the CPU), ``IQ2A_MM=0``
+    keeps the J-conv."""
+    mm_env = os.environ.get("IQ2A_MM", "")
+    if mm_env == "1":
+        return "mm"
+    if mm_env == "0":
+        return "jconv"
+    return "mm" if torch.device(device).type != "cpu" else "jconv"
 
 
 def lowrate_osc(phase0_fixed: torch.Tensor, inc_lo_fixed: torch.Tensor, m: int):
@@ -191,22 +215,94 @@ def mix_and_advance(
     return yr, yi, phase_next
 
 
+def _pad_or_trim(x: torch.Tensor, need: int) -> torch.Tensor:
+    pad = need - x.shape[-1]
+    return torch.nn.functional.pad(x, (0, pad)) if pad > 0 else x[:need]
+
+
+def fir_il(
+    x: torch.Tensor,
+    decimation: int,
+    m: int,
+    num_taps: int,
+    *,
+    poly_w: torch.Tensor | None = None,
+    kernel_il: torch.Tensor | None = None,
+    j_kernel: torch.Tensor | None = None,
+    j_lanes: int = 1,
+    mm_kernel: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The decimating bandpass FIR over the interleaved stream ``x`` (tail
+    first, ``2(L-1) + 2N`` floats): ``m`` outputs at stride ``2D`` for each
+    of the ``2C`` kernel rows, float32 ``(2C, m)``, in the formulation the
+    given kernel selects (see :func:`ddc_apply_il`)."""
+    D, L = decimation, num_taps
+    if poly_w is not None:
+        return poly_fir_il(x, poly_w, D, m)
+    if mm_kernel is not None and j_lanes > 1:
+        # real outputs (i < m) read exactly x[i*2D : i*2D + 2L] through
+        # nonzero weights; only discarded tail lanes can touch the zero pad
+        n_shift, stride, rows = mm_kernel.shape
+        r_blocks = -(-m // j_lanes)
+        a = _pad_or_trim(x, (r_blocks + n_shift) * stride).view(r_blocks + n_shift, stride)
+        y = torch.matmul(a[:r_blocks], mm_kernel[0])
+        for s in range(1, n_shift):
+            y = y + torch.matmul(a[s : s + r_blocks], mm_kernel[s])
+        # (R, J*2C) columns channel-major (o*J + j) -> (2C, m)
+        cdim = rows // j_lanes
+        yt = y.view(r_blocks, cdim, j_lanes).transpose(0, 1).reshape(cdim, r_blocks * j_lanes)
+        return yt[:, :m]
+    if j_kernel is not None and j_lanes > 1:
+        # J consecutive decimated outputs ride the output-channel axis;
+        # real outputs never read the zero pad
+        d2 = 2 * D
+        r_blocks = -(-m // j_lanes)
+        xj = _pad_or_trim(x, (r_blocks * j_lanes - 1) * d2 + 2 * L)
+        with torch.backends.cudnn.flags(allow_tf32=False):
+            yj = torch.nn.functional.conv1d(xj[None, None], j_kernel, stride=j_lanes * d2)[0]
+        # (2C*J, R), rows channel-major (o*J + j)
+        cdim = yj.shape[0] // j_lanes
+        y = yj.view(cdim, j_lanes, r_blocks).transpose(1, 2).reshape(cdim, r_blocks * j_lanes)
+        return y[:, :m]
+    if kernel_il is None:
+        raise ValueError("the FIR needs poly_w, mm_kernel, j_kernel or kernel_il")
+    with torch.backends.cudnn.flags(allow_tf32=False):
+        return torch.nn.functional.conv1d(x[None, None], kernel_il, stride=2 * D)[0]
+
+
 def ddc_apply_il(
     plan: DDCPlan,
-    poly_w: torch.Tensor,
+    poly_w: torch.Tensor | None,
     f: torch.Tensor,
     itail: torch.Tensor,
     phase0_fixed: torch.Tensor,
     inc_lo_fixed: torch.Tensor,
+    *,
+    kernel_il: torch.Tensor | None = None,
+    j_kernel: torch.Tensor | None = None,
+    j_lanes: int = 1,
+    mm_kernel: torch.Tensor | None = None,
 ):
     """Interleaved-domain DDC: mix+filter+decimate straight off the scaled
-    raw stream through the polyphase FIR.
+    raw stream, no de-interleave.
 
     Parameters
     ----------
-    poly_w: ``(K, 2D, 2C)`` = ``build_poly_kernel(interleave_kernel(...), 2D)``.
+    poly_w: ``(K, 2D, 2C)`` = ``build_poly_kernel(interleave_kernel(...), 2D)``:
+        selects the hand-written polyphase FIR; ``None`` selects one of the
+        library formulations below.
     f: float32 ``(2N,)`` scaled raw interleaved samples.
     itail: float32 ``(2(L-1),)`` carried raw-domain tail.
+    kernel_il: ``(2C, 1, 2L)`` from :func:`interleave_kernel`: the plain
+        ``conv1d`` at stride ``2D``.
+    j_kernel/j_lanes: the output-channel-augmented kernel from
+        :func:`j_lanes_kernel`: ``conv1d`` at stride ``J*2D``.
+    mm_kernel: ``(n_shift, stride, J*2C)`` from :func:`shift_matmul_kernel`
+        (requires ``j_lanes > 1``): ``n_shift`` dense ``torch.matmul``s over
+        the contiguous ``(rows, stride)`` reshape.
+
+    The convolutions run with cuDNN's TF32 off; the matmuls need
+    ``torch.backends.cuda.matmul.allow_tf32`` off (the pipeline checks it).
 
     Returns ``(yr, yi, new_itail, phase_next)``; ``yr/yi`` shaped ``(C, m)``.
     """
@@ -214,13 +310,131 @@ def ddc_apply_il(
     assert f.shape[-1] == 2 * N
     m = plan.out_size
     x = torch.cat([itail, f])  # (2(L-1) + 2N,)
-    bb = poly_fir_il(x, poly_w, D, m).reshape(-1, 2, m)
+    bb = fir_il(
+        x, D, m, L, poly_w=poly_w, kernel_il=kernel_il, j_kernel=j_kernel, j_lanes=j_lanes,
+        mm_kernel=mm_kernel,
+    ).reshape(-1, 2, m)
     yr, yi, phase_next = mix_and_advance(
         bb[:, 0], bb[:, 1], phase0_fixed, inc_lo_fixed, m
     )
     # clone: a view would keep the whole chunk alive in the carried state
     new_itail = f[2 * N - 2 * (L - 1) :].clone() if L > 1 else itail
     return yr, yi, new_itail, phase_next
+
+
+def bank_from_kernel(kernel_np: np.ndarray, os_plan) -> np.ndarray:
+    """Recover the complex bandpass bank from a pair kernel built by
+    :func:`bandpass_kernel` (undo the tap reversal), transformed to
+    ``(C, fft_size)`` complex64 for the overlap-save channelizer, or to the
+    ``(C, fold, fft_size/fold)`` combine gains when the plan uses the
+    polyphase forward.
+
+    ``os_plan`` is the :class:`~.osfir.OverlapSavePlan` the bank feeds (its
+    fold shift and scale are baked in); a bare ``int`` FFT size yields the
+    plain fold-free responses.
+    """
+    from .osfir import taps_fft
+
+    C = kernel_np.shape[0] // 2
+    rows = []
+    for c in range(C):
+        g = (
+            kernel_np[2 * c, 0][::-1].astype(np.float64)
+            + 1j * kernel_np[2 * c + 1, 0][::-1].astype(np.float64)
+        )
+        rows.append(taps_fft(g, os_plan))
+    return np.stack(rows)
+
+
+def complex_from_interleaved(f: torch.Tensor, iq_order: str) -> torch.Tensor:
+    """The ordered complex stream off the scaled interleaved float32 stream.
+
+    A complex64 tensor's memory is ``[re, im]`` pairs, exactly the
+    interleaved stream, so ``view_as_complex`` reinterprets in place (``f``
+    must be contiguous at an 8-byte-aligned offset) and the four IQ orders
+    are unit elementwise transforms:
+
+    ========  ===================  =======================
+    order     stream pairs (a,b)   wanted i + 1j*q
+    ========  ===================  =======================
+    iq        (i, q)               v
+    iq_inv    (i, q), q negated    conj(v)
+    qi        (q, i)               1j * conj(v)
+    qi_inv    (q, i), q negated    -1j * v
+    ========  ===================  =======================
+    """
+    v = torch.view_as_complex(f.view(-1, 2))
+    if iq_order == "iq":
+        return v
+    if iq_order == "iq_inv":
+        return torch.conj_physical(v)
+    if iq_order == "qi":
+        return 1j * torch.conj_physical(v)
+    if iq_order == "qi_inv":
+        return -1j * v
+    raise ValueError(f"Unknown IQ order '{iq_order}'")
+
+
+def _fft_bank_mix(plan, os_plan, h_bank, x, tail, phase0_fixed, inc_lo_fixed):
+    from .osfir import os_fir_bank
+
+    tail_c = torch.complex(tail[0], tail[1])
+    dec, _ = os_fir_bank(os_plan, h_bank, x, tail_c)  # (C, m) complex
+    return mix_and_advance(dec.real, dec.imag, phase0_fixed, inc_lo_fixed, plan.out_size)
+
+
+def ddc_apply_fft_il(
+    plan: DDCPlan,
+    os_plan,
+    h_bank: torch.Tensor,
+    f: torch.Tensor,
+    tail: torch.Tensor,
+    phase0_fixed: torch.Tensor,
+    inc_lo_fixed: torch.Tensor,
+    iq_order: str = "iq",
+):
+    """:func:`ddc_apply_fft` fed the scaled raw interleaved stream (the
+    pipeline's fft-channelizer path): the complex input is the view of
+    :func:`complex_from_interleaved`.  The state is that of
+    :func:`ddc_apply_fft`, the ``(2, L-1)`` pair tail."""
+    L, N = plan.num_taps, plan.chunk_size
+    assert f.shape[-1] == 2 * N
+    x = complex_from_interleaved(f, iq_order)
+    yr, yi, phase_next = _fft_bank_mix(
+        plan, os_plan, h_bank, x, tail, phase0_fixed, inc_lo_fixed
+    )
+    if L > 1:
+        tail_x = x[N - (L - 1) :]
+        new_tail = torch.stack([tail_x.real, tail_x.imag])
+    else:
+        new_tail = tail
+    return yr, yi, new_tail, phase_next
+
+
+def ddc_apply_fft(
+    plan: DDCPlan,
+    os_plan,
+    h_bank: torch.Tensor,
+    xr: torch.Tensor,
+    xi: torch.Tensor,
+    tail: torch.Tensor,
+    phase0_fixed: torch.Tensor,
+    inc_lo_fixed: torch.Tensor,
+):
+    """FFT-channelizer variant of :func:`ddc_apply` (same inputs, same
+    state, same outputs at FFT numerics): batched overlap-save filtering
+    with the per-channel bandpass bank, then the identical low-rate mix.
+    Selected in the pipeline with ``IQ2A_CHANNELIZER=fft``."""
+    L, N = plan.num_taps, plan.chunk_size
+    assert xr.shape[-1] == N
+    yr, yi, phase_next = _fft_bank_mix(
+        plan, os_plan, h_bank, torch.complex(xr, xi), tail, phase0_fixed, inc_lo_fixed
+    )
+    if L > 1:
+        new_tail = torch.stack([xr[N - (L - 1) :], xi[N - (L - 1) :]])
+    else:
+        new_tail = tail
+    return yr, yi, new_tail, phase_next
 
 
 def ddc_apply(
@@ -267,3 +481,32 @@ def ddc_apply(
     else:
         new_tail = tail
     return yr, yi, new_tail, phase_next
+
+
+def ddc_fullrate_stages(
+    plan: DDCPlan,
+    kernel: torch.Tensor,
+    xr: torch.Tensor,
+    xi: torch.Tensor,
+    tail: torch.Tensor,
+    phase0_fixed: torch.Tensor,
+    inc_fixed: torch.Tensor,
+):
+    """Full-rate mixed/filtered stages (stride-1 ``conv1d`` of the pair plus
+    the full-rate NCO).
+
+    Only used for the first-chunk stage snapshots; costs D times the normal
+    step, so it never runs in the hot loop.
+    Returns (mixed_r, mixed_i, filtered_r, filtered_i), each ``(C, N)``.
+    """
+    N = plan.chunk_size
+    x_full = torch.stack([torch.cat([tail[0], xr]), torch.cat([tail[1], xi])])[None]
+    with torch.backends.cudnn.flags(allow_tf32=False):
+        out = torch.nn.functional.conv1d(x_full, kernel)[0].reshape(-1, 2, N)
+    br, bi = out[:, 0], out[:, 1]
+    cos, sin = lowrate_osc(phase0_fixed, inc_fixed, N)
+    filt_r = br * cos - bi * sin
+    filt_i = br * sin + bi * cos
+    mix_r = xr[None] * cos - xi[None] * sin
+    mix_i = xr[None] * sin + xi[None] * cos
+    return mix_r, mix_i, filt_r, filt_i

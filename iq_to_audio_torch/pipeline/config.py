@@ -7,12 +7,15 @@ built for one package builds for the other.  Two fields differ in meaning:
 * ``device`` names the torch device.  ``None`` means ``"cuda"``: the
   pipeline runs on the card unless the caller asks for the CPU (the tests
   pass ``device="cpu"``), and it raises when no card is present.
-* ``fft_workers`` and ``filter_block``/``auto_filter_block`` are accepted
-  and ignored (the port's only channelizer is the polyphase FIR).
+* ``profile_dir`` receives a ``torch.profiler`` Chrome trace of the chunk
+  loop (``chunk_loop.trace.json``).
 
-Fields whose feature the port does not carry yet (dump-iq, stage plots,
-the profiler hook) are kept so the pipeline can reject them by name (see
-``ROADMAP.md``).
+``filter_block``/``auto_filter_block`` act on the ``fft`` channelizer
+(``IQ2A_CHANNELIZER=fft``, or the CPU's default when the native library is
+missing): with ``auto_filter_block`` (the default) the overlap-save planner
+picks the FFT size; without it ``filter_block`` is the FFT size, rounded up
+to a power of two that holds the filter.  The FIR channelizers have no such
+size.  ``fft_workers`` is accepted and ignored (torch owns FFT threading).
 """
 
 from __future__ import annotations
@@ -35,12 +38,12 @@ class ProcessingConfig:
     output_path: Path | None = None
     dump_iq_path: Path | None = None
     chunk_size: int = 1_048_576  # requested complex samples per chunk
-    filter_block: int = 65_536  # accepted, ignored (no FFT channelizer)
+    filter_block: int = 65_536  # FFT size of the fft channelizer (see above)
     iq_order: str = "iq"
     probe_only: bool = False
     mix_sign_override: int | None = None
     plot_stages_path: Path | None = None
-    fft_workers: int | None = None  # accepted, ignored
+    fft_workers: int | None = None  # accepted, ignored (torch owns threading)
     max_input_seconds: float | None = None
     input_container: str | None = None
     input_format: str | None = None
@@ -53,11 +56,13 @@ class ProcessingConfig:
     extra_target_freqs: list[float] = field(default_factory=list)
     #: per-extra-channel output paths (parallel to extra_target_freqs)
     extra_output_paths: list[Path | None] = field(default_factory=list)
+    #: let the overlap-save planner pick the FFT size instead of taking
+    #: ``filter_block`` verbatim
     auto_filter_block: bool = True
     #: torch device for the chunk step; None = "cuda" (no silent CPU
     #: fallback: a run without a card raises unless "cpu" is asked for)
     device: str | None = None
-    #: profiler trace directory (not carried by the port yet)
+    #: directory for a torch.profiler Chrome trace of the chunk loop
     profile_dir: Path | None = None
     #: checkpoint cadence in seconds of input; the checkpoint is written
     #: next to output 0 as ``<output>.ckpt``

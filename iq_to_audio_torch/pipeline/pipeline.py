@@ -14,10 +14,11 @@ Drives the chunk step (:mod:`.step`) from a host loop with:
   chunk and the resampler come from Python ints, never device syncs),
 * progress phases, cooperative cancel with partial-output cleanup, and
   checkpoint/resume,
-* the end-of-file resampler flush.
-
-Not carried yet, each rejected with :class:`NotImplementedError` (see
-``ROADMAP.md``): pass-through, IQ dumps, stage plots and the profiler hook.
+* the end-of-file resampler flush,
+* pass-through slicing (``demod_mode="none"``: the decimated IQ goes out in
+  the input's codec), the channel-IQ dump beside the audio, stage snapshots
+  of the first chunk, and a ``torch.profiler`` trace of the chunk loop
+  (``profile_dir``).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from ..demod import DecoderStats, create_decoder
 from ..io.formats import InputFormatSpec, resolve_input_format
 from ..io.probe import SampleRateProbe, probe_sample_rate
 from ..io.reader import IQReader, convert_to_complex
-from ..io.writer import AudioWriter
+from ..io.writer import AudioWriter, IQDebugWriter, IQSliceWriter
 from ..ops.ddc import DDCPlan, bandpass_kernel
 from ..ops.nco import nco_increment_fixed
 from ..ops.resample import ResamplePlan, design_resampler_kernel
@@ -81,6 +82,10 @@ class ProcessingResult:
     input_samples: int = 0
     #: chunk steps run on the device, the zero-padded final group included
     dispatched_chunks: int = 0
+    #: which channelizer ran (``conv``, ``fft``, ``native``) and, for
+    #: ``conv``, in which formulation (``poly`` is the hand-written kernel)
+    channelizer: str = ""
+    formulation: str = ""
 
 
 def resolve_device(requested: str | None) -> torch.device:
@@ -103,18 +108,6 @@ def resolve_device(requested: str | None) -> torch.device:
 
 class ProcessingCancelled(RuntimeError):  # noqa: N818 - the JAX package's name
     """Raised when processing is aborted early by user request."""
-
-
-def _unsupported(cfg: ProcessingConfig) -> str | None:
-    if (cfg.demod_mode or "").lower() in {"none", "pass", "iq"}:
-        return "pass-through (--demod none)"
-    if cfg.dump_iq_path is not None:
-        return "IQ dumps"
-    if cfg.plot_stages_path is not None:
-        return "stage plots"
-    if cfg.profile_dir is not None:
-        return "the profiler hook"
-    return None
 
 
 def _truncate_payload(path: Path, payload_bytes: int) -> None:
@@ -165,6 +158,30 @@ class _PinnedRing:
             self.events[i] = None
 
 
+@contextlib.contextmanager
+def _profiled(profile_dir: Path | None, device: torch.device):
+    """``torch.profiler`` around the chunk loop, written as a Chrome trace
+    (``chunk_loop.trace.json``, readable in Perfetto) under ``profile_dir``.
+    Attached only while the loop runs; nothing when ``profile_dir`` is unset."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    out = Path(profile_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    trace = out / "chunk_loop.trace.json"
+    prof.export_chrome_trace(str(trace))
+    LOG.info("Profiler trace written to %s", trace)
+
+
 class ProcessingPipeline:
     def __init__(self, config: ProcessingConfig):
         self.config = config
@@ -176,11 +193,27 @@ class ProcessingPipeline:
 
     # -- helpers -----------------------------------------------------------
 
+    def _is_pass_through_mode(self) -> bool:
+        return (self.config.demod_mode or "").lower() in {"none", "pass", "iq"}
+
     def _target_freqs(self) -> list[float]:
         return [f for f in self.config.all_target_freqs() if f and f > 0]
 
     def _default_output_path(self, target_freq: float) -> Path:
-        return self.config.in_path.with_name(f"audio_{int(target_freq)}_48k.wav")
+        ft = int(target_freq)
+        if self._is_pass_through_mode():
+            spec = self._input_spec
+            in_suffix = self.config.in_path.suffix
+            if spec and spec.container == "wav":
+                wav_suffixes = {".wav", ".wave", ".wv", ".rf64"}
+                ext = in_suffix if in_suffix.lower() in wav_suffixes else ".wav"
+            elif spec and spec.container == "raw":
+                codec_ext = {"pcm_u8": ".cu8", "pcm_s16le": ".cs16", "pcm_f32le": ".cf32"}
+                ext = in_suffix or codec_ext.get(spec.codec, ".raw")
+            else:
+                ext = in_suffix or ".wav"
+            return self.config.in_path.with_name(f"slice_{ft}{ext}")
+        return self.config.in_path.with_name(f"audio_{ft}_48k.wav")
 
     @staticmethod
     def _annotate(base: Path, freq: float) -> Path:
@@ -207,11 +240,6 @@ class ProcessingPipeline:
 
     def run(self, progress_sink: ProgressSink | None = None) -> ProcessingResult:
         cfg = self.config
-        missing = _unsupported(cfg)
-        if missing is not None:
-            raise NotImplementedError(
-                f"{missing} is not ported to the torch pipeline yet (see ROADMAP.md)"
-            )
         device = resolve_device(cfg.device)
         if self._input_spec is None:
             spec, source = resolve_input_format(
@@ -255,24 +283,26 @@ class ProcessingPipeline:
         if manual_rate is not None and manual_rate <= 0:
             raise ValueError("Input sample rate override must be positive.")
 
-        audio_writers: list[AudioWriter] = []
+        #: every writer this run opens, closed on all exit paths
+        all_writers: list = []
 
         def close_writers_quietly() -> None:
-            for w in audio_writers:
+            for w in all_writers:
                 with contextlib.suppress(Exception):
                     w.close()
 
         try:
             return self._run(
                 cfg, device, input_spec, manual_rate, tracker, check_cancel,
-                audio_writers, output_paths,
+                all_writers, output_paths,
             )
         except ProcessingCancelled:
             # delete partial outputs on cancel (reference processing.py:
             # 1205-1211), unless checkpointing is on: the partial output and
             # the checkpoint then let a later run resume
             close_writers_quietly()
-            if not cfg.probe_only and not cfg.checkpoint_secs:
+            keep_for_resume = cfg.checkpoint_secs and not self._is_pass_through_mode()
+            if not cfg.probe_only and not keep_for_resume:
                 for p in output_paths:
                     try:
                         Path(p).unlink(missing_ok=True)
@@ -285,8 +315,9 @@ class ProcessingPipeline:
 
     def _run(
         self, cfg, device, input_spec, manual_rate, tracker, check_cancel,
-        audio_writers, output_paths,
+        all_writers, output_paths,
     ) -> ProcessingResult:
+        pass_through = self._is_pass_through_mode()
         # --- probing ---------------------------------------------------------
         if input_spec.container == "raw":
             if manual_rate is None:
@@ -364,19 +395,33 @@ class ProcessingPipeline:
             # the card amortises per-chunk launch and copy latency: prefer
             # the 4Mi cap unless the user asked for less
             target_chunk = max(target_chunk, 1 << 22)
-        rate_plan = ResamplePlan.create(fs_channel, _OUTPUT_RATE, 1)
-        rs_align = 1 if rate_plan.identity else rate_plan.down
+        rs_align = 1
+        if not pass_through:
+            rate_plan = ResamplePlan.create(fs_channel, _OUTPUT_RATE, 1)
+            rs_align = 1 if rate_plan.identity else rate_plan.down
         ddc_plan = DDCPlan.create(
             len(taps), decimation, target_chunk=target_chunk, out_align=rs_align,
             max_chunk=1 << 22,
         )
         chunk_size = ddc_plan.chunk_size
-        rs_plan = ResamplePlan.create(fs_channel, _OUTPUT_RATE, ddc_plan.out_size)
+        rs_plan = (
+            None if pass_through
+            else ResamplePlan.create(fs_channel, _OUTPUT_RATE, ddc_plan.out_size)
+        )
+        resampling = rs_plan is not None and not rs_plan.identity
 
         # --- checkpoint/resume: carried state + input offset -----------------
         resume_data = None
         ckpt_path: Path | None = None
-        if (cfg.checkpoint_secs or cfg.resume) and not cfg.probe_only:
+        ckpt_requested = bool(cfg.checkpoint_secs or cfg.resume) and not cfg.probe_only
+        if ckpt_requested and pass_through:
+            # the slice output would need codec-exact truncation on resume
+            LOG.warning(
+                "Checkpoint/resume is not supported in pass-through "
+                "(--demod none) runs; continuing without checkpoints."
+            )
+            ckpt_requested = False
+        if ckpt_requested:
             ckpt_path = Path(str(self._channel_paths(freqs, cfg.output_path)[0]) + ".ckpt")
         if cfg.resume and ckpt_path is not None and ckpt_path.exists():
             with ckpt_path.open("rb") as f:
@@ -414,7 +459,7 @@ class ProcessingPipeline:
                 else 0
             )
             channel_samples = total_input_samples / max(decimation, 1)
-            tracker.start([
+            phases = [
                 PhaseState("ingest", "Ingest IQ", total_input_samples, unit="samples"),
                 PhaseState("channel", "Channelize", channel_samples, unit="samples"),
                 PhaseState("demod", "Demodulate", channel_samples, unit="samples"),
@@ -423,7 +468,12 @@ class ProcessingPipeline:
                     max(total_input_samples / sample_rate * _OUTPUT_RATE, 0.0),
                     unit="samples",
                 ),
-            ])
+            ]
+            if cfg.dump_iq_path:
+                phases.insert(
+                    3, PhaseState("dump_iq", "Write IQ Dump", channel_samples, unit="samples")
+                )
+            tracker.start(phases)
             tracker.status("init dsp")
             check_cancel("initialization")
 
@@ -463,23 +513,48 @@ class ProcessingPipeline:
             output_paths.extend(self._channel_paths(freqs, cfg.output_path))
             for p in output_paths:
                 p.parent.mkdir(parents=True, exist_ok=True)
+            dump_paths: list[Path | None] = [None] * len(freqs)
+            if cfg.dump_iq_path:
+                dump_paths = [
+                    self._annotate(cfg.dump_iq_path, f) if len(freqs) > 1 else cfg.dump_iq_path
+                    for f in freqs
+                ]
             appending = resume_data is not None
             if appending:
                 # outputs may hold windows flushed after the checkpoint:
-                # truncate back to the checkpointed position (mono s16)
+                # truncate back to the checkpointed position (resume implies
+                # audio mode: pass-through runs write no checkpoint)
+                ctr = resume_data["counters"]
                 for p in output_paths:
-                    _truncate_payload(p, resume_data["counters"]["rs_emitted"] * 2)
-            audio_writers.extend(AudioWriter(p, append=appending) for p in output_paths)
-            if appending:
-                for w, st in zip(audio_writers, resume_data["rms"]):
-                    w.seed_rms(*st)
+                    _truncate_payload(p, ctr["rs_emitted"] * 2)  # mono s16
+                for p in dump_paths:
+                    if p is not None and Path(p).exists():
+                        with Path(p).open("r+b") as f:
+                            f.truncate(ctr["dec_emitted"] * 8)  # cf32 pairs
+            audio_writers: list[AudioWriter] = []
+            slice_writers: list[IQSliceWriter] = []
+            iq_writers = [IQDebugWriter(p, fs_channel, append=appending) for p in dump_paths]
+            if pass_through:
+                slice_writers = [
+                    IQSliceWriter(p, fs_channel, input_spec, append=appending)
+                    for p in output_paths
+                ]
+            else:
+                audio_writers = [AudioWriter(p, append=appending) for p in output_paths]
+                if appending:
+                    for w, st in zip(audio_writers, resume_data["rms"]):
+                        w.seed_rms(*st)
+            all_writers.extend([*iq_writers, *slice_writers, *audio_writers])
 
             # --- build the device step ---------------------------------------
             incs = [nco_increment_fixed(off, sample_rate, sign=mix_sign) for off in offsets]
-            decoder = create_decoder(
-                cfg.demod_mode, deemph_us=cfg.deemph_us, agc_enabled=cfg.agc_enabled
-            )
-            decoder.setup(fs_channel)
+            decoder = None
+            if not pass_through:
+                decoder = create_decoder(
+                    cfg.demod_mode, deemph_us=cfg.deemph_us, agc_enabled=cfg.agc_enabled
+                )
+                decoder.setup(fs_channel)
+            want_stages = cfg.plot_stages_path is not None
             checkpointing = bool(cfg.checkpoint_secs) and ckpt_path is not None
             # a resumed run sizes its windows as the interrupted run did (for
             # the whole input window, not the part left), so acc_chunks and
@@ -490,14 +565,20 @@ class ProcessingPipeline:
                 rs_plan=rs_plan,
                 ddc_kernel_np=bandpass_kernel(taps, incs),
                 rs_kernel_np=(
-                    None if rs_plan.identity
-                    else design_resampler_kernel(rs_plan.up, rs_plan.down)
+                    design_resampler_kernel(rs_plan.up, rs_plan.down) if resampling else None
                 ),
                 incs_fixed=incs,
                 codec=input_spec.codec,
                 iq_order=cfg.iq_order,
                 decoder=decoder,
                 device=device,
+                pass_through=pass_through,
+                dump_iq=cfg.dump_iq_path is not None,
+                # a stage-snapshot run dispatches chunk by chunk
+                super_chunks=1 if want_stages else None,
+                want_stages=want_stages,
+                taps_np=np.asarray(taps),
+                fft_size=None if cfg.auto_filter_block else int(cfg.filter_block),
                 est_total_chunks=(
                     None if cfg.fixed_device_geometry else (geometry_chunks or None)
                 ),
@@ -527,6 +608,9 @@ class ProcessingPipeline:
                 "codec": input_spec.codec,
                 "iq_order": cfg.iq_order,
                 "acc_chunks": step.acc_chunks,
+                # the fft channelizer carries another state layout (the
+                # (2, L-1) pair tail) than conv and native, which interchange
+                "channelizer": "fft" if step.channelizer == "fft" else "conv",
             }
             if resume_data is not None:
                 if resume_data.get("version") != _CKPT_VERSION:
@@ -571,19 +655,23 @@ class ProcessingPipeline:
             loop = _ChunkLoop(
                 step, reader, raw_first, max_input_samples, decimation,
                 tracker=tracker, check_cancel=check_cancel, on_drained=on_drained,
+                want_stages=want_stages,
             )
             state = step.init_state(seg_start)
             if resume_data is not None:
                 state = state_from_jax(resume_data["state"], device)
                 loop.restore(resume_data["counters"])
+            writers = slice_writers if pass_through else audio_writers
             loop_start = time.perf_counter()
-            loop.run(audio_writers, state)
+            with _profiled(cfg.profile_dir, device):
+                loop.run(writers, state, iq_writers=iq_writers)
             loop_seconds = time.perf_counter() - loop_start
             if ckpt_path is not None and not loop.limit_exhausted:
                 ckpt_path.unlink(missing_ok=True)  # the run completed
             tracker.status("flush outputs")
-            decoder.finalize()
-            for w in audio_writers:
+            if decoder is not None:
+                decoder.finalize()
+            for w in all_writers:
                 w.close()
 
         if loop.limit_exhausted and preview_seconds is not None:
@@ -591,13 +679,23 @@ class ProcessingPipeline:
                 "Stopped after %.2f s due to preview limit.",
                 loop.processed_samples / sample_rate,
             )
-        peaks = [w.peak for w in audio_writers]
-        rms_list = [w.rms_dbfs for w in audio_writers]
-        for freq, pk, rms in zip(freqs, peaks, rms_list):
-            LOG.info(
-                "[%d] Audio peak level %.2f dBFS, RMS %.2f dBFS.",
-                int(freq), 20.0 * math.log10(max(pk, 1e-6)), rms,
-            )
+        if want_stages and loop.stage_snapshots:
+            self._save_stage_plots(loop.stage_snapshots, freqs, center_freq, sample_rate, fs_channel)
+        peaks = [w.peak for w in writers]
+        rms_list: list[float] = []
+        if pass_through:
+            for freq, pk in zip(freqs, peaks):
+                LOG.info(
+                    "[%d] IQ slice peak magnitude %.2f dBFS (complex).",
+                    int(freq), 20.0 * math.log10(max(pk, 1e-6)),
+                )
+        else:
+            rms_list = [w.rms_dbfs for w in audio_writers]
+            for freq, pk, rms in zip(freqs, peaks, rms_list):
+                LOG.info(
+                    "[%d] Audio peak level %.2f dBFS, RMS %.2f dBFS.",
+                    int(freq), 20.0 * math.log10(max(pk, 1e-6)), rms,
+                )
         tracker.status("Processing complete")
         return ProcessingResult(
             sample_rate_probe=probe,
@@ -607,14 +705,41 @@ class ProcessingPipeline:
             decimation=decimation,
             fs_channel=fs_channel,
             mix_sign=mix_sign,
-            audio_peak=peaks[0],
+            audio_peak=peaks[0] if peaks else 0.0,
             audio_peaks=peaks,
             stats=[DecoderStats(rms_dbfs=r) for r in rms_list],
             output_paths=list(output_paths),
             loop_seconds=loop_seconds,
             input_samples=loop.processed_samples,
             dispatched_chunks=loop.dispatched,
+            channelizer=step.channelizer,
+            formulation=step.formulation,
         )
+
+    def _save_stage_plots(self, snapshots, freqs, center_freq, sample_rate, fs_channel) -> None:
+        """One stage-PSD figure per channel from the first chunk's snapshots
+        (best effort: a plotting failure does not fail the run)."""
+        cfg = self.config
+        try:
+            from ..analysis.visualize import save_stage_psd
+
+            for c, freq in enumerate(freqs):
+                path = (
+                    cfg.plot_stages_path
+                    if len(freqs) == 1
+                    else self._annotate(cfg.plot_stages_path, freq)
+                )
+                per_channel = {
+                    name: (
+                        buf[c] if buf.ndim > 1 else buf,
+                        sample_rate if name in {"input", "mixed", "filtered"} else fs_channel,
+                    )
+                    for name, buf in snapshots.items()
+                }
+                save_stage_psd(per_channel, path, center_freq)
+            LOG.info("Saved stage PSD plots to %s", cfg.plot_stages_path)
+        except Exception as exc:  # plotting is best effort
+            LOG.warning("Failed to save stage plots: %s", exc)
 
 
 class _ChunkLoop:
@@ -631,7 +756,7 @@ class _ChunkLoop:
 
     def __init__(
         self, step, reader, raw_first, max_input_samples, decimation, *,
-        tracker, check_cancel, on_drained=None,
+        tracker, check_cancel, on_drained=None, want_stages=False,
     ):
         self.step = step
         self.reader = reader
@@ -641,6 +766,9 @@ class _ChunkLoop:
         self.tracker = tracker
         self.check_cancel = check_cancel
         self.on_drained = on_drained
+        self.want_stages = want_stages
+        #: stage name -> numpy array of the first chunk (complex for pairs)
+        self.stage_snapshots: dict[str, np.ndarray] = {}
         self.limit_exhausted = False
         self.dispatched = 0
         # exact host mirrors of the stream position
@@ -717,10 +845,27 @@ class _ChunkLoop:
         if batch:
             yield batch
 
-    def run(self, audio_writers: list[AudioWriter], state: dict) -> None:
+    def _snapshot_chunk(self, state, accs, raw, rs_offset, slot):
+        """The first chunk through ``fn_stages``; the snapshots come to the
+        host at once (a cold path)."""
+        state, stages = self.step.fn_stages(state, accs, raw, rs_offset, slot)
+        for name, buf in stages.items():
+            if isinstance(buf, tuple):  # (re, im)
+                arr = buf[0].cpu().numpy() + 1j * buf[1].cpu().numpy()
+            else:
+                arr = buf.cpu().numpy()
+            self.stage_snapshots[name] = arr
+        return state
+
+    def run(self, writers: list, state: dict, iq_writers: list | None = None) -> None:
+        """``writers`` are the audio writers, or the slice writers of a
+        pass-through step; ``iq_writers`` the IQ dump's (audio runs)."""
         step = self.step
         device = step.device
         rs_plan = step.rs_plan
+        resampling = rs_plan is not None and not rs_plan.identity
+        pass_through = step.pass_through
+        dump_iq = step.dump_iq and not pass_through
         n_dec = step.ddc_plan.out_size
         acc_chunks = step.acc_chunks
         audio_cap = step.audio_capacity
@@ -732,19 +877,33 @@ class _ChunkLoop:
         uploads = _PinnedRing(
             (step.super_chunks, 2 * step.chunk_size), raw_dtype, device
         )
-        downloads = _PinnedRing(tuple(accs["audio"].shape), torch.int16, device)
+        # one host ring per accumulator (audio, iq_r, iq_i), moved in step
+        downloads = {
+            name: _PinnedRing(tuple(acc.shape), acc.dtype, device) for name, acc in accs.items()
+        }
         idx = 0  # device-consumed chunks
         pending = None  # (host buffer slot, counts) of a window not yet written
         last_audio: dict = {}
 
         def drain(slot_i, counts):
-            downloads.wait(slot_i)
-            audio_np = downloads.bufs[slot_i].numpy()
-            for s, (_dec_valid, audio_count) in enumerate(counts):
-                lo = s * audio_cap
-                for c, w in enumerate(audio_writers):
-                    w.write_s16(audio_np[c, lo : lo + audio_count])
-            last_audio.update(buf=audio_np, slot=len(counts) - 1, count=counts[-1][1])
+            host = {}
+            for name, ring in downloads.items():
+                ring.wait(slot_i)
+                host[name] = ring.bufs[slot_i].numpy()
+            if "iq_r" in host:
+                iq_np = host["iq_r"] + 1j * host["iq_i"]
+            for s, (dec_valid, audio_count) in enumerate(counts):
+                if pass_through or dump_iq:
+                    for c, w in enumerate(writers if pass_through else iq_writers):
+                        w.write(iq_np[c, s * n_dec : s * n_dec + dec_valid])
+                if not pass_through:
+                    lo = s * audio_cap
+                    for c, w in enumerate(writers):
+                        w.write_s16(host["audio"][c, lo : lo + audio_count])
+            if not pass_through:
+                last_audio.update(
+                    buf=host["audio"], slot=len(counts) - 1, count=counts[-1][1]
+                )
 
         for wgroups in self._windows():
             self.check_cancel(f"chunk {idx + 1}")
@@ -763,27 +922,28 @@ class _ChunkLoop:
                 uploads.record(ui)
                 # exact host bookkeeping (Python ints, no syncs)
                 slot_base = idx % acc_chunks
-                rs_offset = (
-                    rs_plan.chunk_offset(self.rs_in_device) if not rs_plan.identity else 0
-                )
+                rs_offset = rs_plan.chunk_offset(self.rs_in_device) if resampling else 0
                 group_valid = group_dec = group_audio = 0
                 for valid_frames, _blk in group:
                     self.processed_samples += valid_frames
                     dec_total = -(-self.processed_samples // decimation)  # ceil
                     dec_valid = dec_total - self.dec_emitted
                     self.dec_emitted = dec_total
-                    if not rs_plan.identity:
+                    if resampling:
                         audio_count = rs_plan.out_count(self.rs_in_device, dec_valid)
                         self.rs_in_device += n_dec
                         self.rs_in_valid += dec_valid
                     else:
-                        audio_count = dec_valid
+                        audio_count = 0 if pass_through else dec_valid
                     self.rs_emitted += audio_count
                     window.append((dec_valid, audio_count))
                     group_valid += valid_frames
                     group_dec += dec_valid
                     group_audio += audio_count
-                if step.super_chunks > 1:
+                if self.want_stages and idx == 0:
+                    # stage runs dispatch chunk by chunk (super_chunks == 1)
+                    state = self._snapshot_chunk(state, accs, raw_dev[0], rs_offset, slot_base)
+                elif step.super_chunks > 1:
                     state = step.fn_super(state, accs, raw_dev, rs_offset, slot_base)
                 else:
                     state = step.fn(state, accs, raw_dev[0], rs_offset, slot_base)
@@ -791,12 +951,16 @@ class _ChunkLoop:
                 # progress from the host counters: no device sync
                 tracker.advance("ingest", float(group_valid))
                 tracker.advance("channel", float(group_dec))
+                if dump_iq:
+                    tracker.advance("dump_iq", float(group_dec))
                 tracker.advance("demod", float(group_dec))
-                tracker.advance("encode", float(group_audio))
+                if not pass_through:
+                    tracker.advance("encode", float(group_audio))
             # one D2H per window, queued behind its compute on the stream
-            host, di = downloads.next()
-            host.copy_(accs["audio"], non_blocking=True)
-            downloads.record(di)
+            for name, ring in downloads.items():
+                host, di = ring.next()
+                host.copy_(accs[name], non_blocking=True)
+                ring.record(di)
             if pending is not None:
                 drain(*pending)
             pending = (di, window)
@@ -805,7 +969,7 @@ class _ChunkLoop:
             drain(*pending)
         self.dispatched = idx
 
-        if not rs_plan.identity and "buf" in last_audio:
+        if resampling and "buf" in last_audio:
             # EOF flush: outputs of the final (incomplete) resampler block
             # exist in the last padded accumulator slot
             rs_emitted = self.rs_emitted
@@ -820,14 +984,14 @@ class _ChunkLoop:
                 else:
                     lo = last_audio["slot"] * audio_cap + last_audio["count"]
                     hi = min(lo + extra, (last_audio["slot"] + 1) * audio_cap)
-                for c, w in enumerate(audio_writers):
+                for c, w in enumerate(writers):
                     w.write_s16(buf[c, lo:hi])
         if "buf" in last_audio:
             # the device peak covers the zero-padded tail too; consult it
             # only where the +-0.99 clipper engaged and the writers lost it
             clip_q = round(0.99 * 32767.0) / 32767.0 - 1e-6
-            if any(w.peak >= clip_q for w in audio_writers):
+            if any(w.peak >= clip_q for w in writers):
                 peaks_np = state["peak"].cpu().numpy()
-                for c, w in enumerate(audio_writers):
+                for c, w in enumerate(writers):
                     if w.peak >= clip_q:
                         w.peak = max(w.peak, float(peaks_np[c]))

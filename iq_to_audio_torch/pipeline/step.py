@@ -1,27 +1,60 @@
-"""The chunk step: scale -> polyphase-FIR DDC -> demod (NFM, AM, USB/LSB)
+"""The chunk step: scale -> channelizer (DDC) -> demod (NFM, AM, USB/LSB)
 -> polyphase resample -> s16 encode, on one device, for one to five
 channels, with the stream state carried as a dict of tensors.
 
-Port of the JAX package's ``pipeline/step.py`` (audio out; no pass-through,
-no IQ dump, no stage snapshots).  PyTorch runs eagerly, so
-the JAX ``lax.scan`` superstep is a Python loop over the chunks of one
-dispatch group and the accumulator slot is written in place.
+Port of the JAX package's ``pipeline/step.py``: audio out, pass-through
+(no demodulator: the decimated IQ is the output), the IQ dump beside the
+audio, the first-chunk stage snapshots, and the choice among the
+channelizers.  PyTorch runs eagerly, so the JAX ``lax.scan`` superstep is a
+Python loop over the chunks of one dispatch group and the accumulator slots
+are written in place.
+
+Channelizers (``IQ2A_CHANNELIZER`` pins one; :func:`build_chunk_step`):
+
+* ``conv``: the decimating FIR over the raw interleaved stream.  Its
+  default formulation is the hand-written polyphase FIR
+  (:func:`iq_to_audio_torch.ops.poly_fir.poly_fir_il`: the CUDA kernel on
+  the card, its plain version on CPU tensors); ``IQ2A_MM`` / ``IQ2A_CONVJ``
+  select the library formulations (shifted dense matmul, lane-filling
+  J-conv, plain ``conv1d``).  The default on a CUDA device and the only
+  stage-snapshot path.
+* ``fft``: the overlap-save FFT bank (:mod:`iq_to_audio_torch.ops.osfir`);
+  its state carries the ``(2, L-1)`` pair tail.
+* ``native``: the C++ phase-split channelizer
+  (:mod:`iq_to_audio_torch.ops.native_ddc`), CPU device only; the default
+  there when the library builds, else ``fft``.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..demod.base import Decoder
-from ..ops.ddc import MASK32, DDCPlan, ddc_apply_il, interleave_kernel
+from ..ops.ddc import (
+    MASK32,
+    DDCPlan,
+    ddc_apply_fft_il,
+    ddc_apply_il,
+    ddc_fullrate_stages,
+    interleave_kernel,
+)
 from ..ops.poly_fir import build_poly_kernel
 from ..ops.resample import ResamplePlan, polyphase_resample
 
-#: host bytes of one accumulation window's s16 audio, at most
+LOG = logging.getLogger(__name__)
+
+#: host bytes of one accumulation window's outputs, at most
 _ACC_BYTES_BUDGET = 96 << 20
+
+_STAGES_NEED_CONV = (
+    "stage snapshots need the conv channelizer "
+    "(unset IQ2A_CHANNELIZER or use 'conv' with --plot-stages)"
+)
 
 
 def _device_scale(raw: torch.Tensor, codec: str) -> torch.Tensor:
@@ -36,6 +69,25 @@ def _device_scale(raw: torch.Tensor, codec: str) -> torch.Tensor:
     raise ValueError(f"Unsupported codec '{codec}'")
 
 
+def _deinterleave_pair(f: torch.Tensor, iq_order: str, n: int):
+    """Split a scaled interleaved stream into the (re, im) pair with the
+    reference IQ-order semantics (``iq``/``qi`` slot order, ``*_inv``
+    negates Q).  Cold paths only (first-chunk stage snapshots)."""
+    pairs = f.reshape(n, 2)
+    if iq_order.startswith("iq"):
+        i, q = pairs[:, 0], pairs[:, 1]
+    else:
+        q, i = pairs[:, 0], pairs[:, 1]
+    if iq_order.endswith("_inv"):
+        q = -q
+    return i, q
+
+
+def _device_convert(raw: torch.Tensor, codec: str, iq_order: str, n: int):
+    """Scale + de-interleave to the float32 (re, im) pair (cold paths)."""
+    return _deinterleave_pair(_device_scale(raw, codec), iq_order, n)
+
+
 def chunk_step(
     state: dict,
     accs: dict,
@@ -43,25 +95,84 @@ def chunk_step(
     rs_offset: int,
     slot: int,
     incs: torch.Tensor,
-    poly_w: torch.Tensor,
+    poly_w: torch.Tensor | None,
     rs_kernel: torch.Tensor | None,
     *,
     ddc_plan: DDCPlan,
     rs_plan: ResamplePlan | None,
-    decoder: Decoder,
+    decoder: Decoder | None,
     codec: str,
+    iq_order: str = "iq",
+    pass_through: bool = False,
+    dump_iq: bool = False,
+    stages: dict | None = None,
+    channelizer: str = "conv",
+    ddc_kernel: torch.Tensor | None = None,
+    ddc_kernel_pair: torch.Tensor | None = None,
+    j_kernel: torch.Tensor | None = None,
+    mm_kernel: torch.Tensor | None = None,
+    j_lanes: int = 1,
+    os_plan=None,
 ) -> dict:
-    """One chunk.  Returns the new state; the s16 audio of the chunk is
-    written in place into slot ``slot`` of ``accs["audio"]`` (clip +-0.99,
-    scale 32767, round half to even — reference processing.py:449-452)."""
-    m = ddc_plan.out_size
+    """One chunk.  Returns the new state; the outputs of the chunk are
+    written in place into slot ``slot`` of the accumulators: the s16 audio
+    (clip +-0.99, scale 32767, round half to even — reference
+    processing.py:449-452) into ``accs["audio"]`` unless ``pass_through``,
+    and the decimated baseband into ``accs["iq_r"]``/``accs["iq_i"]`` at
+    ``slot * m`` when ``dump_iq`` or ``pass_through``.
+
+    ``ddc_kernel`` is what the channelizer filters with: the interleaved
+    ``(2C, 1, 2L)`` kernel (``conv`` without ``poly_w``), the complex bank
+    (``fft``) or the reversed real lowpass taps (``native``).  A ``stages``
+    dict asks for the stage snapshots (conv channelizer only) and is filled
+    with them: ``input``/``mixed``/``filtered`` at the input rate and
+    ``decimated`` at the channel rate as (re, im) pairs, then the
+    demodulator's intermediates.
+    """
+    n, m = ddc_plan.chunk_size, ddc_plan.out_size
     inc_lo = (incs * ddc_plan.decimation) & MASK32  # exact mod 2**32
-    f = _device_scale(raw, codec)
-    yr, yi, fir_tail, phase_next = ddc_apply_il(
-        ddc_plan, poly_w, f, state["fir_tail"], state["phase"], inc_lo
-    )
-    audio_ch, demod_state, _ = decoder.process(state["demod"], yr, yi)
-    new_state = {"phase": phase_next, "fir_tail": fir_tail, "demod": demod_state}
+    if channelizer in ("native", "fft") and stages is not None:
+        raise ValueError(_STAGES_NEED_CONV)
+    if channelizer == "native":
+        # consumes the UNSCALED raw chunk (convert fused into the kernel);
+        # the carried state is the conv path's interleaved tail
+        from ..ops.native_ddc import ddc_apply_native
+
+        yr, yi, fir_tail, phase_next = ddc_apply_native(
+            ddc_plan, ddc_kernel, incs, raw, state["fir_tail"], state["phase"], inc_lo,
+            codec, iq_order,
+        )
+    elif channelizer == "fft":
+        f = _device_scale(raw, codec)
+        yr, yi, fir_tail, phase_next = ddc_apply_fft_il(
+            ddc_plan, os_plan, ddc_kernel, f, state["fir_tail"], state["phase"], inc_lo,
+            iq_order,
+        )
+    else:
+        f = _device_scale(raw, codec)
+        yr, yi, fir_tail, phase_next = ddc_apply_il(
+            ddc_plan, poly_w, f, state["fir_tail"], state["phase"], inc_lo,
+            kernel_il=ddc_kernel, j_kernel=j_kernel, j_lanes=j_lanes, mm_kernel=mm_kernel,
+        )
+    new_state = {"phase": phase_next, "fir_tail": fir_tail}
+    if stages is not None:
+        # cold path: materialise the pair and run the full-rate stages off
+        # the pair kernel
+        xr, xi = _deinterleave_pair(f, iq_order, n)
+        tr, ti = _deinterleave_pair(state["fir_tail"], iq_order, ddc_plan.overlap)
+        mix_r, mix_i, filt_r, filt_i = ddc_fullrate_stages(
+            ddc_plan, ddc_kernel_pair, xr, xi, torch.stack([tr, ti]), state["phase"], incs
+        )
+        stages["input"] = (xr, xi)
+        stages["mixed"] = (mix_r, mix_i)
+        stages["filtered"] = (filt_r, filt_i)
+        stages["decimated"] = (yr, yi)
+    if dump_iq or pass_through:
+        accs["iq_r"][:, slot * m : (slot + 1) * m] = yr
+        accs["iq_i"][:, slot * m : (slot + 1) * m] = yi
+    if pass_through:
+        return new_state
+    audio_ch, new_state["demod"], inter = decoder.process(state["demod"], yr, yi)
     if rs_plan is None or rs_plan.identity:
         audio48, cap = audio_ch, m
     else:
@@ -73,6 +184,8 @@ def chunk_step(
     new_state["peak"] = torch.maximum(state["peak"], audio48.abs().amax(dim=-1))
     encoded = torch.round(torch.clamp(audio48, -0.99, 0.99) * 32767.0).to(torch.int16)
     accs["audio"][:, slot * cap : (slot + 1) * cap] = encoded
+    if stages is not None:
+        stages.update(inter)
     return new_state
 
 
@@ -84,13 +197,25 @@ class ChunkStep:
     rs_plan: ResamplePlan | None
     num_channels: int
     codec: str
-    decoder: Decoder
+    decoder: Decoder | None
     acc_chunks: int
     super_chunks: int
     device: torch.device
-    _poly_w: torch.Tensor
+    _poly_w: torch.Tensor | None
     _rs_kernel: torch.Tensor | None
     _incs: torch.Tensor  # int64 holding uint32 increments
+    iq_order: str = "iq"
+    pass_through: bool = False
+    dump_iq: bool = False
+    channelizer: str = "conv"
+    #: ``poly`` (hand kernel), ``mm``, ``jconv`` or ``conv1d`` for ``conv``
+    formulation: str = "poly"
+    os_plan: object = None
+    _ddc_kernel: torch.Tensor | None = None  # see chunk_step
+    _ddc_kernel_pair: torch.Tensor | None = None  # stage snapshots only
+    _j_kernel: torch.Tensor | None = None
+    _mm_kernel: torch.Tensor | None = None
+    j_lanes: int = 1
 
     @property
     def chunk_size(self) -> int:
@@ -99,6 +224,8 @@ class ChunkStep:
     @property
     def audio_capacity(self) -> int:
         """Per-chunk audio slot size inside the accumulator."""
+        if self.pass_through:
+            return 0
         if self.rs_plan is None or self.rs_plan.identity:
             return self.ddc_plan.out_size
         return self.rs_plan.out_capacity
@@ -110,30 +237,57 @@ class ChunkStep:
         plan, c, dev = self.ddc_plan, self.num_channels, self.device
         incs_np = self._incs.cpu().numpy().astype(np.uint64)
         phase0 = (incs_np * np.uint64(start_sample % (1 << 32))) % np.uint64(1 << 32)
+        # fft carries the (2, L-1) pair tail; conv and native the raw-domain
+        # interleaved tail, so their checkpoints interchange
+        tail_shape = (2, plan.overlap) if self.channelizer == "fft" else (2 * plan.overlap,)
         state = {
             "phase": torch.from_numpy(phase0.astype(np.int64)).to(dev),
-            # the raw-domain interleaved tail of the polyphase FIR
-            "fir_tail": torch.zeros(2 * plan.overlap, dtype=torch.float32, device=dev),
-            "demod": self.decoder.init_state((c,), dev),
-            "peak": torch.zeros(c, dtype=torch.float32, device=dev),
+            "fir_tail": torch.zeros(tail_shape, dtype=torch.float32, device=dev),
         }
-        if self.rs_plan is not None and not self.rs_plan.identity:
-            state["rs_tail"] = torch.zeros(
-                (c, self.rs_plan.tail_len), dtype=torch.float32, device=dev
-            )
+        if not self.pass_through:
+            state["demod"] = self.decoder.init_state((c,), dev)
+            state["peak"] = torch.zeros(c, dtype=torch.float32, device=dev)
+            if self.rs_plan is not None and not self.rs_plan.identity:
+                state["rs_tail"] = torch.zeros(
+                    (c, self.rs_plan.tail_len), dtype=torch.float32, device=dev
+                )
         return state
 
     def init_accs(self) -> dict:
-        k, c = self.acc_chunks, self.num_channels
-        audio = torch.zeros((c, k * self.audio_capacity), dtype=torch.int16, device=self.device)
-        return {"audio": audio}
+        k, c, dev = self.acc_chunks, self.num_channels, self.device
+        accs = {}
+        if self.pass_through or self.dump_iq:
+            shape = (c, k * self.ddc_plan.out_size)
+            accs["iq_r"] = torch.zeros(shape, dtype=torch.float32, device=dev)
+            accs["iq_i"] = torch.zeros(shape, dtype=torch.float32, device=dev)
+        if not self.pass_through:
+            accs["audio"] = torch.zeros(
+                (c, k * self.audio_capacity), dtype=torch.int16, device=dev
+            )
+        return accs
 
-    def fn(self, state, accs, raw, rs_offset, slot):
+    def _call(self, state, accs, raw, rs_offset, slot, stages=None):
         return chunk_step(
             state, accs, raw, rs_offset, slot, self._incs, self._poly_w, self._rs_kernel,
             ddc_plan=self.ddc_plan, rs_plan=self.rs_plan, decoder=self.decoder,
-            codec=self.codec,
+            codec=self.codec, iq_order=self.iq_order, pass_through=self.pass_through,
+            dump_iq=self.dump_iq, stages=stages, channelizer=self.channelizer,
+            ddc_kernel=self._ddc_kernel,
+            ddc_kernel_pair=self._ddc_kernel_pair if stages is not None else None,
+            j_kernel=self._j_kernel, mm_kernel=self._mm_kernel, j_lanes=self.j_lanes,
+            os_plan=self.os_plan,
         )
+
+    def fn(self, state, accs, raw, rs_offset, slot):
+        return self._call(state, accs, raw, rs_offset, slot)
+
+    def fn_stages(self, state, accs, raw, rs_offset, slot):
+        """:meth:`fn` plus the stage snapshots of the chunk: returns
+        ``(state, stages)``.  Needs a step built with ``want_stages``."""
+        if self._ddc_kernel_pair is None:
+            raise ValueError(_STAGES_NEED_CONV)
+        stages: dict = {}
+        return self._call(state, accs, raw, rs_offset, slot, stages), stages
 
     def fn_super(self, state, accs, raw_stack, rs_offset, slot_base):
         """The chunks of one dispatch group, filling slots
@@ -151,6 +305,62 @@ class ChunkStep:
         return state
 
 
+def choose_channelizer(
+    device: torch.device, *, want_stages: bool, have_taps: bool, pinned: str | None = None
+) -> str:
+    """Channelizer selection, as the JAX package's ``build_chunk_step`` makes it:
+    ``IQ2A_CHANNELIZER`` (or ``pinned``, which wins) names one of ``conv``,
+    ``fft``, ``native``; unset, a CUDA device gets ``conv`` and the CPU
+    gets ``native`` when the library builds (it needs the real lowpass taps
+    and cannot make stage snapshots), then ``fft``, and ``conv`` for a
+    stage-snapshot run.  ``native`` on a CUDA device is an error."""
+    choice = (pinned or os.environ.get("IQ2A_CHANNELIZER", "")).lower()
+    on_cpu = device.type == "cpu"
+    if choice == "native" and not on_cpu:
+        raise ValueError(
+            "IQ2A_CHANNELIZER=native runs on the CPU device only; "
+            "use 'conv' or 'fft' on a CUDA device"
+        )
+    native_ok = False
+    if have_taps and not want_stages and (choice == "native" or (choice == "" and on_cpu)):
+        from ..ops.native_ddc import available as native_available
+
+        native_ok = native_available()
+        if choice == "native" and not native_ok:
+            LOG.warning(
+                "IQ2A_CHANNELIZER=native requested but the native library "
+                "is unavailable; falling back to the FFT bank"
+            )
+    if choice in ("conv", "fft"):
+        return choice
+    if native_ok:
+        return "native"
+    if (on_cpu and not want_stages) or choice == "native":
+        return "fft"
+    return "conv"
+
+
+def choose_formulation(device: torch.device) -> str:
+    """Formulation of the ``conv`` channelizer from ``IQ2A_MM`` and
+    ``IQ2A_CONVJ``, with the JAX package's meanings: ``IQ2A_MM=1`` the
+    shifted dense matmul; ``IQ2A_CONVJ=1`` the lane-filling J-conv;
+    ``IQ2A_MM=0`` the J-conv on a CUDA device and the plain conv on the CPU;
+    ``IQ2A_CONVJ=0`` the plain ``conv1d``.  Both unset: ``poly``, the
+    hand-written polyphase FIR (what the JAX package reaches with
+    ``IQ2A_PALLAS=1``)."""
+    convj_env = os.environ.get("IQ2A_CONVJ", "")
+    mm_env = os.environ.get("IQ2A_MM", "")
+    if convj_env == "0":
+        return "conv1d"
+    if mm_env == "1":
+        return "mm"
+    if convj_env == "1":
+        return "jconv"
+    if mm_env == "0":
+        return "jconv" if device.type != "cpu" else "conv1d"
+    return "poly"
+
+
 def build_chunk_step(
     *,
     ddc_plan: DDCPlan,
@@ -160,22 +370,39 @@ def build_chunk_step(
     incs_fixed: list[int],
     codec: str,
     iq_order: str,
-    decoder: Decoder,
+    decoder: Decoder | None,
     device: torch.device,
+    pass_through: bool = False,
+    dump_iq: bool = False,
     est_total_chunks: int | None = None,
     acc_chunks_cap: int | None = None,
+    super_chunks: int | None = None,
+    want_stages: bool = False,
+    taps_np: np.ndarray | None = None,
+    channelizer: str | None = None,
+    fft_size: int | None = None,
 ) -> ChunkStep:
     """Geometry (8-chunk accumulation windows split into dispatch groups,
     as the JAX package sizes them for accelerators) and device constants.
     ``acc_chunks_cap`` bounds the window (checkpoints land on window
-    boundaries).  The channelizer is always the polyphase FIR."""
+    boundaries); ``super_chunks`` pins the dispatch group (1 for a
+    stage-snapshot run).  ``taps_np`` (the real lowpass taps) lets the CPU
+    choose the native channelizer.  ``channelizer`` pins what
+    :func:`choose_channelizer` would read from the environment;
+    ``fft_size`` pins the ``fft`` channelizer's FFT size (else the
+    overlap-save planner picks it)."""
     c = len(incs_fixed)
-    cap = (
-        ddc_plan.out_size
-        if (rs_plan is None or rs_plan.identity)
-        else rs_plan.out_capacity
-    )
-    acc_chunks = max(1, min(64, _ACC_BYTES_BUDGET // max(c * cap * 2, 1)))
+    per_chunk = 0
+    if not pass_through:
+        cap = (
+            ddc_plan.out_size
+            if (rs_plan is None or rs_plan.identity)
+            else rs_plan.out_capacity
+        )
+        per_chunk += c * cap * 2
+    if pass_through or dump_iq:
+        per_chunk += c * ddc_plan.out_size * 8
+    acc_chunks = max(1, min(64, _ACC_BYTES_BUDGET // max(per_chunk, 1)))
     if est_total_chunks is not None and est_total_chunks > 0:
         # never allocate more window slots than the capture can fill
         pow2 = 1 << max(0, (est_total_chunks - 1).bit_length())
@@ -184,12 +411,13 @@ def build_chunk_step(
     acc_chunks = min(acc_chunks, 8)
     if acc_chunks_cap is not None:
         acc_chunks = max(1, min(acc_chunks, acc_chunks_cap))
-    if est_total_chunks is not None and est_total_chunks > 0:
-        # ~6 dispatch groups per capture
-        super_chunks = min(acc_chunks, max(1, -(-est_total_chunks // 6)))
-    else:
-        # unbounded length: small groups bound the final group's padding
-        super_chunks = min(acc_chunks, 2)
+    if super_chunks is None:
+        if est_total_chunks is not None and est_total_chunks > 0:
+            # ~6 dispatch groups per capture
+            super_chunks = min(acc_chunks, max(1, -(-est_total_chunks // 6)))
+        else:
+            # unbounded length: small groups bound the final group's padding
+            super_chunks = min(acc_chunks, 2)
     if rs_plan is not None and not rs_plan.identity and ddc_plan.out_size % rs_plan.down != 0:
         super_chunks = 1  # per-chunk rs_offset required (see fn_super)
     super_chunks = max(1, min(super_chunks, acc_chunks))
@@ -198,8 +426,70 @@ def build_chunk_step(
         padded_total = -(-est_total_chunks // super_chunks) * super_chunks
         acc_chunks = max(super_chunks, min(acc_chunks, padded_total))
 
-    kernel_il = interleave_kernel(ddc_kernel_np, iq_order)
-    poly_np = build_poly_kernel(kernel_il, 2 * ddc_plan.decimation)
+    device = torch.device(device)
+    channelizer = choose_channelizer(
+        device, want_stages=want_stages, have_taps=taps_np is not None, pinned=channelizer
+    )
+
+    def dev(arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+    os_plan = None
+    poly_w = j_kernel = mm_kernel = None
+    j_lanes = 1
+    # the pair kernel feeds only the stage-snapshot path
+    pair_kernel = (
+        dev(np.asarray(ddc_kernel_np, dtype=np.float32))
+        if want_stages and channelizer == "conv"
+        else None
+    )
+    if channelizer == "native":
+        # the reversed real lowpass taps; the per-channel bandpass rotation
+        # is the separable oscillator inside the kernel, driven by `incs`
+        ddc_kernel = dev(np.asarray(taps_np, dtype=np.float32)[::-1])
+        formulation = "native"
+    elif channelizer == "fft":
+        from ..ops.ddc import bank_from_kernel
+        from ..ops.osfir import OverlapSavePlan
+
+        os_plan = OverlapSavePlan.for_chunk(
+            ddc_plan.num_taps, ddc_plan.decimation, ddc_plan.chunk_size,
+            fft_size=fft_size, cpu_tuned=device.type == "cpu",
+        )
+        ddc_kernel = dev(bank_from_kernel(ddc_kernel_np, os_plan))
+        formulation = "fft"
+    else:
+        # IQ order and Q inversion are folded into the interleaved taps
+        kernel_il_np = interleave_kernel(ddc_kernel_np, iq_order)
+        ddc_kernel = None
+        formulation = choose_formulation(device)
+        j = min(max(1, 128 // kernel_il_np.shape[0]), ddc_plan.out_size)
+        if formulation in ("mm", "jconv") and j <= 1:
+            formulation = "conv1d"
+        if formulation == "poly":
+            poly_w = dev(build_poly_kernel(kernel_il_np, 2 * ddc_plan.decimation))
+        elif formulation == "mm":
+            from ..ops.ddc import shift_matmul_kernel
+
+            j_lanes = j
+            mm_kernel = dev(shift_matmul_kernel(kernel_il_np, ddc_plan.decimation, j))
+            LOG.info(
+                "Channelizer: shifted-dense-matmul (J=%d, %d shifts x stride %d)",
+                j, mm_kernel.shape[0], mm_kernel.shape[1],
+            )
+        elif formulation == "jconv":
+            from ..ops.ddc import j_lanes_kernel
+
+            j_lanes = j
+            j_kernel = dev(j_lanes_kernel(kernel_il_np, ddc_plan.decimation, j))
+            LOG.info(
+                "Channelizer: lane-filling J-conv (J=%d, kernel width %d)",
+                j, j_kernel.shape[-1],
+            )
+        elif formulation == "conv1d":
+            ddc_kernel = dev(kernel_il_np)
+        else:
+            raise ValueError(f"Unknown conv formulation '{formulation}'")
     return ChunkStep(
         ddc_plan=ddc_plan,
         rs_plan=rs_plan,
@@ -209,11 +499,22 @@ def build_chunk_step(
         acc_chunks=acc_chunks,
         super_chunks=super_chunks,
         device=device,
-        _poly_w=torch.from_numpy(poly_np).to(device),
+        _poly_w=poly_w,
         _rs_kernel=(
-            torch.from_numpy(np.asarray(rs_kernel_np, dtype=np.float32)).to(device)
+            dev(np.asarray(rs_kernel_np, dtype=np.float32))
             if rs_kernel_np is not None
             else None
         ),
         _incs=torch.tensor(list(incs_fixed), dtype=torch.int64, device=device),
+        iq_order=iq_order,
+        pass_through=pass_through,
+        dump_iq=dump_iq,
+        channelizer=channelizer,
+        formulation=formulation,
+        os_plan=os_plan,
+        _ddc_kernel=ddc_kernel,
+        _ddc_kernel_pair=pair_kernel,
+        _j_kernel=j_kernel,
+        _mm_kernel=mm_kernel,
+        j_lanes=j_lanes,
     )

@@ -236,10 +236,11 @@ def test_kernel_rejects_bad_inputs():
         tpoly.poly_fir_il(x.double(), w, decim, 100)
 
 
-def test_pipeline_on_card_matches_cpu(tmp_path):
+def test_pipeline_on_card_matches_cpu(tmp_path, monkeypatch):
     """The same capture through the card and through the CPU's plain path:
     s16 audio within 1 LSB, one kernel launch per dispatched chunk."""
     _card()
+    monkeypatch.setenv("IQ2A_CHANNELIZER", "conv")
     fs, offset = 250_000.0, 25_000.0
     n = int(fs * 0.6)
     t = np.arange(n) / fs
@@ -328,10 +329,11 @@ def test_ddc_apply_on_card_matches_cpu():
     assert torch.equal(outs["cuda"][1], outs["cpu"][1])
 
 
-def test_five_targets_on_card_match_cpu(tmp_path):
+def test_five_targets_on_card_match_cpu(tmp_path, monkeypatch):
     """Five NFM targets through the card (O = 10: the tap-block loop runs)
     and through the CPU's plain path: every WAV within 1 LSB."""
     _card()
+    monkeypatch.setenv("IQ2A_CHANNELIZER", "conv")
     fs = 250_000.0
     offsets = (25_000.0, -40_000.0, 60_000.0, -75_000.0, 95_000.0)
     n = int(fs * 0.5)
@@ -358,3 +360,157 @@ def test_five_targets_on_card_match_cpu(tmp_path):
     for got, want in zip(outs["cuda"], outs["cpu"]):
         assert got.size == want.size
         assert np.abs(got - want).max() <= 1.5 / 32768
+
+
+# --- the library formulations, the FFT bank and the run modes on the card ---
+
+
+@pytest.mark.parametrize("channels", [1, 5])
+def test_formulations_on_card_match_hand_kernel(channels):
+    """conv1d, J-conv and shifted matmul < -100 dB and the FFT bank < -90 dB
+    against the hand kernel, from one stream."""
+    from iq_to_audio_torch.ops.osfir import OverlapSavePlan, os_fir_bank
+
+    dev = _card()
+    decim, m = 26, 5_000
+    offsets = [25_000.0 - 170_000.0 * c for c in range(channels)]
+    taps = design_channel_filter(FS, 12_500.0, decim)
+    L = len(taps)
+    incs = [nco_increment_fixed(o, FS) for o in offsets]
+    pair = bandpass_kernel(taps, incs)
+    kil = interleave_kernel(pair, "iq")
+    j = min(128 // kil.shape[0], m)
+    rng = np.random.default_rng(channels)
+    x = torch.from_numpy(rng.uniform(-1, 1, 2 * (L - 1) + 2 * m * decim).astype(np.float32)).to(dev)
+    hand = tddc.fir_il(
+        x, decim, m, L, poly_w=torch.from_numpy(tpoly.build_poly_kernel(kil, 2 * decim)).to(dev)
+    ).cpu()
+    others = {
+        "conv1d": {"kernel_il": torch.from_numpy(kil).to(dev)},
+        "jconv": {"j_kernel": torch.from_numpy(tddc.j_lanes_kernel(kil, decim, j)).to(dev), "j_lanes": j},
+        "mm": {"mm_kernel": torch.from_numpy(tddc.shift_matmul_kernel(kil, decim, j)).to(dev), "j_lanes": j},
+    }
+    for name, kw in others.items():
+        got = tddc.fir_il(x, decim, m, L, **kw).cpu()
+        assert got.shape == hand.shape, name
+        assert _err_db(got, hand) < -100.0, name
+    os_plan = OverlapSavePlan.for_chunk(L, decim, m * decim)
+    assert not os_plan.poly and os_plan.fft_size & (os_plan.fft_size - 1) == 0
+    bank = torch.from_numpy(tddc.bank_from_kernel(pair, os_plan)).to(dev)
+    xc = tddc.complex_from_interleaved(x, "iq")
+    dec, _ = os_fir_bank(os_plan, bank, xc[L - 1 :], xc[: L - 1])
+    got = torch.view_as_real(dec).permute(0, 2, 1).reshape(-1, m).cpu()
+    assert _err_db(got, hand) < -90.0
+
+
+def test_fullrate_stages_on_card_match_cpu():
+    dev = _card()
+    decim, n = 26, 26 * 4_000
+    taps = design_channel_filter(FS, 12_500.0, decim)
+    L = len(taps)
+    incs = [nco_increment_fixed(o, FS) for o in (25_000.0, -40_000.0)]
+    kernel = torch.from_numpy(bandpass_kernel(taps, incs))
+    rng = np.random.default_rng(9)
+    xr, xi = torch.from_numpy(rng.uniform(-1, 1, (2, n)).astype(np.float32))
+    tail = torch.from_numpy(rng.uniform(-1, 1, (2, L - 1)).astype(np.float32))
+    phase = torch.tensor([12345, 4_000_000_000], dtype=torch.int64)
+    inc_t = torch.tensor(incs, dtype=torch.int64)
+    plan = tddc.DDCPlan(L, decim, n)
+    outs = {}
+    for device in (dev, torch.device("cpu")):
+        args = [t.to(device) for t in (kernel, xr, xi, tail, phase, inc_t)]
+        outs[device.type] = [o.cpu() for o in tddc.ddc_fullrate_stages(plan, *args)]
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert _err_db(got, want) < -100.0
+
+
+def _nfm_capture(tmp_path, seconds=0.6):
+    fs, offset = 250_000.0, 25_000.0
+    n = int(fs * seconds)
+    t = np.arange(n) / fs
+    phase = 2 * np.pi * np.cumsum(offset + 2_500.0 * np.sin(2 * np.pi * 1_000.0 * t)) / fs
+    iq = 0.7 * np.exp(1j * phase)
+    path = tmp_path / "baseband_145000000Hz_cap.wav"
+    write_stereo_wav(path, np.column_stack([iq.real, iq.imag]), int(fs), codec="pcm_s16le")
+    return path, 145_000_000.0 + offset
+
+
+@pytest.mark.parametrize("mode", ["pass_through", "dump_iq", "stages", "fft", "mm", "jconv"])
+def test_run_modes_on_card_match_cpu(tmp_path, monkeypatch, mode):
+    """Each run mode on the card against the same run on the CPU's conv
+    path; the hand kernel launches once per chunk unless the run is pinned
+    to another channelizer or formulation."""
+    _card()
+    path, target = _nfm_capture(tmp_path)
+    kw = {}
+    if mode == "pass_through":
+        kw["demod_mode"] = "none"
+    if mode == "dump_iq":
+        kw["dump_iq_path"] = tmp_path / "chan.cf32"
+    if mode == "stages":
+        kw["plot_stages_path"] = tmp_path / "stages.png"
+    outs = {}
+    for device in ("cuda", "cpu"):
+        monkeypatch.setenv("IQ2A_CHANNELIZER", "fft" if (mode, device) == ("fft", "cuda") else "conv")
+        monkeypatch.delenv("IQ2A_MM", raising=False)
+        monkeypatch.delenv("IQ2A_CONVJ", raising=False)
+        if device == "cuda" and mode == "mm":
+            monkeypatch.setenv("IQ2A_MM", "1")
+        if device == "cuda" and mode == "jconv":
+            monkeypatch.setenv("IQ2A_CONVJ", "1")
+        if "dump_iq_path" in kw:
+            kw["dump_iq_path"] = tmp_path / f"chan_{device}.cf32"
+        cfg = ProcessingConfig(
+            in_path=path, target_freq=target, output_path=tmp_path / f"out_{device}.wav",
+            chunk_size=65_536, device=device, mix_sign_override=1, **kw,
+        )
+        before = tpoly.poly_fir_il.launches
+        result = ProcessingPipeline(cfg).run()
+        launched = tpoly.poly_fir_il.launches - before
+        hand = device == "cuda" and mode not in ("fft", "mm", "jconv")
+        assert launched == (result.dispatched_chunks if hand else 0)
+        if device == "cuda" and mode in ("fft", "mm", "jconv"):
+            assert mode in (result.channelizer, result.formulation)
+        outs[device] = read_wav(result.output_paths[0])[0]
+    assert outs["cuda"].shape == outs["cpu"].shape
+    if mode == "fft":
+        assert _err_db(outs["cuda"], outs["cpu"]) < -60.0
+    else:
+        assert np.abs(outs["cuda"] - outs["cpu"]).max() <= 1.5 / 32768
+    if mode == "dump_iq":
+        a = np.fromfile(tmp_path / "chan_cuda.cf32", np.float32)
+        b = np.fromfile(tmp_path / "chan_cpu.cf32", np.float32)
+        assert a.size == b.size and _err_db(a, b) < -100.0
+
+
+def test_native_channelizer_refused_on_card(tmp_path, monkeypatch):
+    _card()
+    monkeypatch.setenv("IQ2A_CHANNELIZER", "native")
+    path, target = _nfm_capture(tmp_path, 0.2)
+    cfg = ProcessingConfig(in_path=path, target_freq=target, output_path=tmp_path / "o.wav")
+    with pytest.raises(ValueError, match="native runs on the CPU device only"):
+        ProcessingPipeline(cfg).run()
+
+
+@pytest.mark.parametrize("backend", ["torch", "matmul"])
+def test_analysis_backends_on_card(backend):
+    from iq_to_audio_torch.analysis import compute_psd
+
+    _card()
+    t = np.arange(9_600) / 48_000.0
+    iq = (0.5 * np.exp(2j * np.pi * 5_000.0 * t)).astype(np.complex64)
+    _, want = compute_psd(iq, 48_000.0, nfft=4096)
+    _, got = compute_psd(iq, 48_000.0, nfft=4096, backend=backend)  # device=None: the card
+    hot = want > want.max() - 80.0
+    np.testing.assert_allclose(got[hot], want[hot], atol=0.3)
+
+
+def test_resident_rate_on_card():
+    from iq_to_audio_torch.pipeline.benchmark import measure_step_resident_msps
+
+    _card()
+    before = tpoly.poly_fir_il.launches
+    out = measure_step_resident_msps(250_000.0, target_chunk=65_536, seconds_target=0.2)
+    assert out["device"].startswith("cuda") and out["formulation"] == "poly"
+    assert out["msps"] > 0
+    assert tpoly.poly_fir_il.launches - before == (out["reps"] + 3) * out["super_chunks"]

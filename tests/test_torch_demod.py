@@ -121,7 +121,7 @@ def test_chunk_step_matches_jax(mode, agc):
     step = tstep.build_chunk_step(
         ddc_plan=plan, rs_plan=rs_plan, ddc_kernel_np=kernel_np, rs_kernel_np=rs_kernel,
         incs_fixed=incs, codec="pcm_s16le", iq_order="iq", decoder=tdec,
-        device=torch.device("cpu"), est_total_chunks=4,
+        device=torch.device("cpu"), est_total_chunks=4, channelizer="conv",
     )
     phase = (np.asarray(incs, np.uint64) * np.uint64(4_321)) % np.uint64(1 << 32)
     jstate = {

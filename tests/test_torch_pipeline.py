@@ -3,6 +3,7 @@ float64 twin, on the CPU at small sizes (250 kHz captures, a few chunks)."""
 
 from __future__ import annotations
 
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -27,6 +28,7 @@ from iq_to_audio_torch.io.writer import read_wav, write_stereo_wav
 from iq_to_audio_torch.ops.ddc import DDCPlan, bandpass_kernel, interleave_kernel
 from iq_to_audio_torch.ops.nco import nco_increment_fixed
 from iq_to_audio_torch.ops.resample import ResamplePlan, design_resampler_kernel
+from iq_to_audio_torch.pipeline import pipeline as tpipeline
 from iq_to_audio_torch.pipeline import step as tstep
 from iq_to_audio_torch.pipeline.benchmark import run_benchmark
 from iq_to_audio_torch.pipeline.filters import compute_decimation, design_channel_filter
@@ -93,7 +95,7 @@ def _torch_step(plan, rs_plan, fs_ch, kernel_np, incs):
         ddc_plan=plan, rs_plan=rs_plan, ddc_kernel_np=kernel_np,
         rs_kernel_np=design_resampler_kernel(rs_plan.up, rs_plan.down), incs_fixed=incs,
         codec="pcm_s16le", iq_order="iq", decoder=decoder, device=torch.device("cpu"),
-        est_total_chunks=4,
+        est_total_chunks=4, channelizer="conv",
     )
 
 
@@ -290,11 +292,31 @@ def test_default_device_needs_a_card(tmp_path):
     ],
 )
 def test_unported_features_raise(tmp_path, field, value):
-    path = _write_capture(tmp_path, make_nfm_iq(FS, 0.1, OFFSET))
-    cfg = tpkg.ProcessingConfig(in_path=path, target_freq=CENTER + OFFSET, device="cpu")
-    setattr(cfg, field, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpkg.ProcessingPipeline(cfg).run()
+    """Pass-through, the IQ dump, stage plots and the profiler hook were
+    refused with NotImplementedError before they were ported; each now
+    runs and leaves its output (``tests/test_torch_pipeline_modes.py``
+    holds the outputs against the JAX package's)."""
+    path = _write_capture(tmp_path, make_nfm_iq(FS, 0.3, OFFSET))
+    out = tmp_path / "out.wav"
+    cfg = tpkg.ProcessingConfig(
+        in_path=path, target_freq=CENTER + OFFSET, device="cpu", output_path=out,
+        chunk_size=32_768,
+    )
+    setattr(cfg, field, tmp_path / value if isinstance(value, Path) else value)
+    result = tpkg.ProcessingPipeline(cfg).run()
+    assert result.dispatched_chunks >= 2
+    frames, rate = read_wav(out)
+    if field == "demod_mode":
+        assert frames.shape[1] == 2 and rate == round(result.fs_channel)
+    else:
+        assert frames.shape[1] == 1 and rate == 48_000
+    if field == "dump_iq_path":
+        assert (tmp_path / value).stat().st_size == 8 * math.ceil(0.3 * FS / result.decimation)
+    if field == "plot_stages_path":
+        assert (tmp_path / value).stat().st_size > 10_000
+    if field == "profile_dir":
+        assert (tmp_path / value / "chunk_loop.trace.json").stat().st_size > 1_000
+    assert not hasattr(tpipeline, "_unsupported")
 
 
 def test_port_imports_no_jax():
