@@ -26,8 +26,8 @@ script exits non-zero:
    c. ``run_benchmark`` with five NFM channels (the tap-block loop of the
       interleaved kernel); channels 0 and 4 against the twin;
    d. AM, USB and LSB (AGC off) against the twin, and USB with the AGC on
-      against the twin's RMS, on one 10 s capture made here;
-   e. a checkpointed run cancelled by a progress sink after ~5 s of input
+      against the twin's RMS, on one 5 s capture made here;
+   e. a checkpointed run cancelled by a progress sink after ~2.5 s of input
       and resumed: its WAVs must be byte-identical to an uninterrupted run;
 5. one flagship chunk (one and five channels) through every channelizer
    formulation of the port on the card: the hand kernel, the plain
@@ -44,11 +44,13 @@ script exits non-zero:
    ``IQ2A_CHANNELIZER=fft`` (no launch of the hand kernel, audio < -60 dB
    against the plain run), and the command line as a subprocess (a run
    whose WAV is byte-identical to the plain run's, and ``--benchmark``);
-7. ``measure_step_resident_msps`` at one and five channels;
+7. the spectral analysis at its defaults (the card) against the host's
+   float64 FFT, and ``measure_step_resident_msps`` at one and five channels;
 8. the device time of one ``chunk_step`` at one and at five channels (CUDA
    events, then ``torch.profiler`` for the busy time) beside the kernel's
-   share of it, and last a run with ``profile_dir`` (its trace must exist):
-   these come last, so that no path above runs with the profiler's tracing
+   share of it, and last a run with ``profile_dir`` (its trace must hold
+   one device event of the hand kernel per chunk dispatched): these come
+   last, so that no path above runs with the profiler's tracing
    attached to the process;
 9. the ``{"kernels": [...]}`` line, then the card line, then the
    ``{"ok": true, ...}`` line.
@@ -73,6 +75,7 @@ import numpy as np
 import torch
 
 from iq_to_audio_torch import ProcessingCancelled, ProcessingConfig, ProcessingPipeline
+from iq_to_audio_torch.analysis import compute_psd, streaming_waterfall
 from iq_to_audio_torch.demod import create_decoder
 from iq_to_audio_torch.io.writer import read_wav, write_stereo_wav
 from iq_to_audio_torch.ops import _cuda_build
@@ -118,6 +121,8 @@ SAMPLE_RATE = 2_500_000.0
 CENTER = 400_000_000.0
 OFFSET = 25_000.0
 SECONDS = 10.0
+#: length of the capture of the mode and resume paths (three flagship chunks)
+MODES_SECONDS = 5.0
 #: hand-written CUDA sources built by this script (csrc/<name>.cu)
 SOURCES = ("poly_fir",)
 #: every kernel wrapper, with its launch count
@@ -136,7 +141,14 @@ _PEAKS = {
 }
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase line also says how many seconds into the
+    script it was printed (``at_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - _T0, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -588,10 +600,10 @@ MODE_SIGNALS = {
 
 
 def make_modes_capture(path: Path) -> None:
-    """A 10 s 2.5 MS/s s16 capture holding an AM carrier, an upper- and a
+    """A ``MODES_SECONDS`` 2.5 MS/s s16 capture holding an AM carrier, an upper- and a
     lower-sideband tone and a quiet upper-sideband tone, each in its own
     channel, over seeded Gaussian noise."""
-    n = int(SECONDS * SAMPLE_RATE)
+    n = int(MODES_SECONDS * SAMPLE_RATE)
     t = np.arange(n, dtype=np.float64) / SAMPLE_RATE
     iq = np.zeros(n, np.complex128)
     _, am_tone, am_amp = MODE_SIGNALS["am"]
@@ -638,7 +650,7 @@ def check_modes(capture: Path, work: Path) -> dict:
         off = MODE_SIGNALS[key][0]
         result, launches = run_path(capture, work / f"mode_{key}.wav", [off], mode, agc)
         audio = read_wav(result.output_paths[0])[0][:, 0]
-        if abs(audio.size - SECONDS * 48_000) > 2 or not np.all(np.isfinite(audio)):
+        if abs(audio.size - MODES_SECONDS * 48_000) > 2 or not np.all(np.isfinite(audio)):
             raise AssertionError(f"{key}: {audio.size} audio samples")
         err, err_raw = twin_err_db(audio, iq, off, mode, agc, result.mix_sign)
         if not err < -60.0:
@@ -695,15 +707,15 @@ class CancelAfter(ProgressSink):
 
 def check_resume(capture: Path, work: Path) -> dict:
     """Two USB channels with the AGC on (the most carried state): an
-    uninterrupted run, then a run with ``checkpoint_secs=2`` cancelled after
-    ~5 s of input, then its resume."""
+    uninterrupted run, then a run with ``checkpoint_secs=1`` cancelled after
+    ~2.5 s of input (two of the capture's three chunks), then its resume."""
     offsets = [MODE_SIGNALS["usb"][0], MODE_SIGNALS["usb_quiet"][0]]
     ref, ref_launches = run_path(capture, work / "ref.wav", offsets, "usb", True)
     out = work / "resumed.wav"
-    sink = CancelAfter(5.0 * SAMPLE_RATE)
+    sink = CancelAfter(0.5 * MODES_SECONDS * SAMPLE_RATE)
     reset_counts()
     try:
-        run_path(capture, out, offsets, "usb", True, sink=sink, checkpoint_secs=2.0)
+        run_path(capture, out, offsets, "usb", True, sink=sink, checkpoint_secs=1.0)
     except ProcessingCancelled:
         pass
     else:
@@ -713,7 +725,7 @@ def check_resume(capture: Path, work: Path) -> dict:
     if len(ckpts) != 1 or cancelled_launches["poly_fir_il"] <= 0:
         raise AssertionError(f"resume: checkpoints {ckpts}, launches {cancelled_launches}")
     result, resume_launches = run_path(
-        capture, out, offsets, "usb", True, checkpoint_secs=2.0, resume=True
+        capture, out, offsets, "usb", True, checkpoint_secs=1.0, resume=True
     )
     if list(work.glob("*.ckpt")):
         raise AssertionError("resume: the checkpoint outlived the completed run")
@@ -964,15 +976,39 @@ def check_cli(capture: Path, work: Path, plain_bytes: bytes) -> dict:
     bench_seconds = time.perf_counter() - t0
     if bench.returncode != 0 or "x realtime" not in bench.stdout:
         raise AssertionError(f"cli --benchmark: exit {bench.returncode}: {bench.stderr[-2000:]}")
-    refused = subprocess.run(
-        [*base, "--in", str(capture), "--ft", str(CENTER + OFFSET), "--burst-segments", "4"],
-        capture_output=True, text=True, timeout=600, cwd=Path(__file__).resolve().parent,
-    )
-    if refused.returncode != 2 or "--burst-segments" not in refused.stderr:
-        raise AssertionError(f"cli: an unported flag exited {refused.returncode}")
     row = {"phase": "cli", "wav_byte_identical": identical, "run_seconds": run_seconds,
-           "benchmark_seconds": bench_seconds, "benchmark_line": bench.stdout.strip().splitlines()[-1],
-           "unported_flag_exit": refused.returncode}
+           "benchmark_seconds": bench_seconds, "benchmark_line": bench.stdout.strip().splitlines()[-1]}
+    emit(row)
+    return row
+
+
+def check_spectrum(capture: Path) -> dict:
+    """The analysis entry points at their defaults (``backend="torch"``,
+    ``device=None``: the card) and the matmul backend, against the host's
+    float64 FFT on the head of the capture, over the bins within 60 dB of
+    the peak (< 0.3 dB)."""
+    iq = head_iq(capture).astype(np.complex64)
+    blocks = [iq[i : i + (1 << 18)] for i in range(0, iq.size, 1 << 18)]
+    row = {"phase": "spectrum"}
+    _, want = compute_psd(iq, SAMPLE_RATE, nfft=1 << 18, backend="numpy")
+    _, want_wf, _, frames = streaming_waterfall(blocks, SAMPLE_RATE, nfft=4096, backend="numpy")
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    got = {
+        "psd_torch": (compute_psd(iq, SAMPLE_RATE, nfft=1 << 18)[1], want),
+        "waterfall_torch": (streaming_waterfall(blocks, SAMPLE_RATE, nfft=4096)[1], want_wf),
+        "waterfall_matmul": (
+            streaming_waterfall(blocks, SAMPLE_RATE, nfft=4096, backend="matmul")[1], want_wf
+        ),
+    }
+    row["device_allocations"] = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+    if row["device_allocations"] <= 0:
+        raise AssertionError("spectrum: the default backend allocated nothing on the card")
+    for key, (psd, ref) in got.items():
+        hot = ref > ref.max() - 60.0
+        row[f"{key}_max_db_diff"] = float(np.abs(psd[hot] - ref[hot]).max())
+        if not row[f"{key}_max_db_diff"] < 0.3:
+            raise AssertionError(f"spectrum {key}: {row[f'{key}_max_db_diff']:.3f} dB off the host FFT")
+    row["waterfall_frames"] = frames
     emit(row)
     return row
 
@@ -994,8 +1030,10 @@ def check_resident() -> dict:
 
 
 def check_profile(capture: Path, work: Path, plain_bytes: bytes) -> dict:
-    """A run with ``profile_dir``: the trace must be there, and the audio
-    must be the plain run's."""
+    """A run with ``profile_dir``: the audio must be the plain run's, and
+    the trace must hold one device-kernel event of the hand kernel for each
+    chunk dispatched (the kernel is launched through ``ctypes``, outside
+    torch's dispatcher, so only the device tracing can have seen it)."""
     trace_dir = work / "trace"
     result, launches = run_path(
         capture, work / "profiled.wav", [OFFSET], "nfm", True, profile_dir=trace_dir
@@ -1004,13 +1042,18 @@ def check_profile(capture: Path, work: Path, plain_bytes: bytes) -> dict:
     size = trace.stat().st_size if trace.exists() else 0
     identical = result.output_paths[0].read_bytes() == plain_bytes
     with trace.open() as f:
-        has_kernel = "poly_fir_kernel" in f.read()
-    if size <= 1_000 or not identical or not has_kernel:
+        events = json.load(f)["traceEvents"]
+    kernel_events = sum(
+        1 for ev in events
+        if str(ev.get("cat", "")).lower() == "kernel" and "poly_fir_kernel" in ev.get("name", "")
+    )
+    if size <= 1_000 or not identical or kernel_events != result.dispatched_chunks:
         raise AssertionError(
-            f"profile: trace of {size} bytes (names the hand kernel: {has_kernel}), "
-            f"audio identical {identical}"
+            f"profile: trace of {size} bytes with {kernel_events} hand-kernel events for "
+            f"{result.dispatched_chunks} chunks, audio identical {identical}"
         )
-    row = {"phase": "profile", "trace_bytes": size, "trace_names_hand_kernel": has_kernel,
+    row = {"phase": "profile", "trace_bytes": size, "trace_hand_kernel_events": kernel_events,
+           "dispatched_chunks": result.dispatched_chunks,
            "audio_byte_identical": identical, "launches": launches,
            "loop_seconds": result.loop_seconds}
     emit(row)
@@ -1079,6 +1122,7 @@ def main() -> int:
         runs = check_modes_of_run(capture, work)
         check_stages(capture)
         check_cli(capture, work, runs["plain_bytes"])
+        check_spectrum(capture)
         check_resident()
         time_chunk_step(1, flagship)
         time_chunk_step(5, batch)

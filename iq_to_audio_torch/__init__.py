@@ -8,9 +8,8 @@ or USB/LSB demodulator (with the SSB feedback AGC), the 48 kHz polyphase
 resampler and the s16 encode; runs can be cancelled, checkpointed and
 resumed, slice the channel IQ instead of demodulating it
 (``demod_mode="none"``), dump it beside the audio, plot the stages of the
-first chunk and profile the chunk loop.  ``IQ2A_CHANNELIZER`` and
-``IQ2A_MM``/``IQ2A_CONVJ`` select the other channelizers (FFT bank, native
-C++ on the CPU, and the library formulations of the FIR).
+first chunk and profile the chunk loop.  ``IQ2A_CHANNELIZER`` selects one
+of the other channelizers (FFT bank, native C++ on the CPU).
 ``python -m iq_to_audio_torch`` is the command line (:mod:`.cli`).  Entry
 points run on the card unless the caller asks for the CPU
 (``ProcessingConfig(device="cpu")``, ``--device cpu``), where each kernel's

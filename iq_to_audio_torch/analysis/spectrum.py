@@ -7,15 +7,15 @@ tail between blocks, and pairwise time-averaging so the waterfall never
 holds more than ``max_slices`` rows.
 
 FFTs go through a pluggable backend (port of the JAX package's
-``analysis/spectrum.py``).  The default is NumPy (pocketfft): snapshot
-sizes are small and host FFTs avoid a device round-trip.
-``backend="torch"`` batches every window of a block into one
-``torch.fft.fft`` call on ``device``; ``backend="matmul"`` computes each
-block's window batch as four real float32 ``torch.matmul``s against a
-cached cos/sin DFT basis (capped at nfft=4096; larger transforms fall back
-to the host FFT).  ``device=None`` means the card, as everywhere in the
-port: without one only an explicit ``"cpu"`` runs.  ``backend="jax"`` is the
-JAX package's name for the device FFT and is refused with a pointer to
+``analysis/spectrum.py``).  The default, ``backend="torch"``, batches every
+window of a block into one ``torch.fft.fft`` call on ``device``;
+``backend="matmul"`` computes each block's window batch as four real
+float32 ``torch.matmul``s on ``device`` against a cached cos/sin DFT basis
+(nfft at most 4096; a larger transform is refused).  ``device=None`` means
+the card, as everywhere in the port: without one only an explicit
+``"cpu"`` runs.  ``backend="numpy"`` is the explicit request for the host's
+pocketfft in float64; it ignores ``device``.  ``backend="jax"`` is the JAX
+package's name for the device FFT and is refused with a pointer to
 ``"torch"``.
 """
 
@@ -27,6 +27,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..utils.device import resolve_device
 
 LOG = logging.getLogger(__name__)
 
@@ -41,22 +43,11 @@ class WaterfallResult:
 
 
 # matmul-DFT basis cache and the largest transform it is allowed to build
-# (an nfft x nfft f32 cos/sin pair; 4096 -> 2 x 64 MB is the sane ceiling,
-# larger transforms fall back to the host FFT)
+# (an nfft x nfft f32 cos/sin pair; 4096 -> 2 x 64 MB is the sane ceiling)
 _DFT_BASIS_MAX = 4096
 _dft_cache: dict[tuple[int, str], tuple] = {}
 
 _BACKENDS = ("numpy", "torch", "matmul")
-
-
-def _resolve(device) -> torch.device:
-    dev = torch.device(device or "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "No CUDA device is available; pass device='cpu' to run this "
-            "backend on the CPU."
-        )
-    return dev
 
 
 def _dft_basis(nfft: int, device: torch.device):
@@ -109,10 +100,13 @@ def _run_fft(x: np.ndarray, nfft: int, backend: str, device=None) -> np.ndarray:
             x = np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, short)])
         if backend == "matmul":
             if nfft > _DFT_BASIS_MAX:
-                return np.fft.fft(x, n=nfft)
-            return _dft_matmul(x, nfft, _resolve(device))
-        xt = torch.from_numpy(np.ascontiguousarray(x, dtype=np.complex64)).to(_resolve(device))
-        return torch.fft.fft(xt, dim=-1).cpu().numpy()
+                raise ValueError(
+                    f'backend="matmul" builds an nfft x nfft basis and stops at '
+                    f'nfft={_DFT_BASIS_MAX} (got {nfft}); use backend="torch"'
+                )
+            return _dft_matmul(x, nfft, resolve_device(device))
+        xt = torch.from_numpy(np.ascontiguousarray(x, dtype=np.complex64))
+        return torch.fft.fft(xt.to(resolve_device(device)), dim=-1).cpu().numpy()
     return np.fft.fft(x, n=nfft)
 
 
@@ -141,7 +135,7 @@ def compute_psd(
     nfft: int = 1 << 18,
     *,
     fft_workers: int | None = None,  # accepted for parity; unused
-    backend: str = "numpy",
+    backend: str = "torch",
     device=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """One-shot PSD (dBFS/Hz) of up to ``nfft`` complex samples."""
@@ -161,7 +155,7 @@ def streaming_waterfall(
     hop: int | None = None,
     max_slices: int = 400,
     fft_workers: int | None = None,  # parity; unused
-    backend: str = "numpy",
+    backend: str = "torch",
     device=None,
 ) -> tuple[np.ndarray, np.ndarray, WaterfallResult, int]:
     """Averaged PSD plus capped waterfall over a stream of sample blocks.

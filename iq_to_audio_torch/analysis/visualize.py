@@ -30,14 +30,21 @@ _STAGE_ORDER = [
 ]
 
 
-def plot_psd(ax, samples: np.ndarray, sample_rate: float, title: str, center_freq: float = 0.0):
+def plot_psd(
+    ax, samples: np.ndarray, sample_rate: float, title: str, center_freq: float = 0.0,
+    *, device=None,
+):
+    """PSD panel of one stage; the FFT runs on ``device`` (``None``: the
+    card)."""
     samples = np.asarray(samples)
     nfft = min(1 << 16, max(256, 1 << int(np.floor(np.log2(max(samples.size, 256))))))
     if np.iscomplexobj(samples):
-        freqs, psd_db = compute_psd(samples, sample_rate, nfft=nfft)
+        freqs, psd_db = compute_psd(samples, sample_rate, nfft=nfft, device=device)
     else:
         # real signal: use analytic-style PSD of the real samples
-        freqs, psd_db = compute_psd(samples.astype(np.complex64), sample_rate, nfft=nfft)
+        freqs, psd_db = compute_psd(
+            samples.astype(np.complex64), sample_rate, nfft=nfft, device=device
+        )
     ax.plot(freqs / 1e3, psd_db, linewidth=0.7)
     ax.set_title(title, fontsize=9)
     ax.set_xlabel("Frequency (kHz)", fontsize=8)
@@ -58,8 +65,14 @@ def save_stage_psd(
     snapshots: dict[str, tuple[np.ndarray, float]],
     output_path: Path | str,
     center_freq: float | None = None,
+    *,
+    device=None,
 ) -> None:
-    """Save a multi-panel PNG of per-stage PSDs."""
+    """Save a multi-panel PNG of per-stage PSDs, computed on ``device``
+    (``None``: the card; without one only ``"cpu"`` runs)."""
+    from ..utils.device import resolve_device
+
+    device = resolve_device(device)  # before the per-panel best effort below
     # direct Agg canvas, no pyplot: switching the PROCESS-wide backend
     # would silently break a later interactive matplotlib figure (the
     # SpanSelector picker) in the same process
@@ -85,6 +98,7 @@ def save_stage_psd(
                 rate,
                 f"{name} ({rate / 1e3:.1f} kS/s)",
                 center_freq or 0.0,
+                device=device,
             )
         except Exception as exc:  # pragma: no cover - defensive per-panel
             LOG.debug("Stage plot failed for %s: %s", name, exc)
@@ -109,6 +123,7 @@ def save_capture_spectrum(
     nfft: int = 8192,
     max_slices: int = 400,
     colormap: str = "viridis",
+    device=None,
 ) -> Path:
     """Headless capture PSD + waterfall PNG — the CLI analogue of the GUI
     snapshot page (the reference renders waterfalls only inside its Qt GUI:
@@ -117,7 +132,8 @@ def save_capture_spectrum(
     Streams the first ``seconds`` of the capture through the bounded-memory
     waterfall accumulator and renders a two-panel figure: averaged PSD (with
     an absolute-frequency top axis when ``center_freq`` is known) above the
-    time/frequency waterfall.
+    time/frequency waterfall.  The FFTs run on ``device`` (``None``: the
+    card; without one only ``"cpu"`` runs).
     """
     import math as _math
 
@@ -160,7 +176,7 @@ def save_capture_spectrum(
                 yield block
 
     freqs, avg_psd, waterfall, frames = streaming_waterfall(
-        _chunks(), sample_rate, nfft=nfft, max_slices=max_slices
+        _chunks(), sample_rate, nfft=nfft, max_slices=max_slices, device=device
     )
     LOG.info(
         "Capture spectrum: %d FFT frames (%d-point), %d waterfall slices.",
@@ -228,6 +244,7 @@ def interactive_select_frequency(
     center_freq: float = 0.0,
     *,
     nfft: int = 1 << 16,
+    device=None,
 ) -> tuple[float | None, float | None]:
     """Minimal matplotlib SpanSelector frequency/bandwidth picker.
 
@@ -239,7 +256,7 @@ def interactive_select_frequency(
     import matplotlib.pyplot as plt
     from matplotlib.widgets import SpanSelector
 
-    freqs, psd_db = compute_psd(np.asarray(samples), sample_rate, nfft=nfft)
+    freqs, psd_db = compute_psd(np.asarray(samples), sample_rate, nfft=nfft, device=device)
     fig, ax = plt.subplots(figsize=(11, 5))
     ax.plot(freqs + center_freq, psd_db, lw=0.6)
     ax.set_xlabel("Frequency (Hz)")

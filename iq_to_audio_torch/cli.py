@@ -219,8 +219,6 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-
-
 def _render_capture_spectrum(
     args: argparse.Namespace,
     input_fmt: tuple[str | None, str | None, str | None],
@@ -255,6 +253,7 @@ def _render_capture_spectrum(
         seconds=args.spectrum_seconds,
         center_freq=center,
         iq_order=args.iq_order,
+        device=args.device,
     )
     LOG.info("Capture spectrum written to %s", out)
 

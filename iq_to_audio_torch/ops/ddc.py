@@ -9,9 +9,11 @@ taps at stride ``2D`` and the oscillator runs only at the decimated rate
 
 :func:`ddc_apply_il` carries the JAX package's four formulations of that
 filter: the hand-written polyphase FIR
-(:func:`iq_to_audio_torch.ops.poly_fir.poly_fir_il`, the card's default),
-the shifted dense matmul (:func:`shift_matmul_kernel`), the lane-filling
-J-conv (:func:`j_lanes_kernel`) and the plain strided ``conv1d``.
+(:func:`iq_to_audio_torch.ops.poly_fir.poly_fir_il`, what the chunk step
+runs), and, as reference functions that the tests and the on-card check
+hold and time against it, the shifted dense matmul
+(:func:`shift_matmul_kernel`), the lane-filling J-conv
+(:func:`j_lanes_kernel`) and the plain strided ``conv1d``.
 :func:`ddc_apply_fft_il` / :func:`ddc_apply_fft` are the overlap-save FFT
 bank (:mod:`.osfir`), and :func:`ddc_fullrate_stages` the full-rate stages
 of the first-chunk snapshots.
@@ -29,7 +31,6 @@ exact and the masked value equals the JAX package's uint32 bit for bit.
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -168,20 +169,6 @@ def shift_matmul_kernel(kernel_il: np.ndarray, decimation: int, j_lanes: int) ->
     return w
 
 
-def lane_formulation(device: torch.device | str = "cpu") -> str:
-    """Which lane-filling formulation ``build_chunk_step`` selects when it is not
-    given the hand kernel: ``"mm"`` (shifted dense matmul, the default on a
-    CUDA device) or ``"jconv"`` (:func:`j_lanes_kernel`, the default on the
-    CPU).  ``IQ2A_MM=1`` forces the matmul (even on the CPU), ``IQ2A_MM=0``
-    keeps the J-conv."""
-    mm_env = os.environ.get("IQ2A_MM", "")
-    if mm_env == "1":
-        return "mm"
-    if mm_env == "0":
-        return "jconv"
-    return "mm" if torch.device(device).type != "cpu" else "jconv"
-
-
 def lowrate_osc(phase0_fixed: torch.Tensor, inc_lo_fixed: torch.Tensor, m: int):
     """(cos, sin) of the decimated-rate oscillator, shapes ``(..., m)``.
 
@@ -290,7 +277,7 @@ def ddc_apply_il(
     ----------
     poly_w: ``(K, 2D, 2C)`` = ``build_poly_kernel(interleave_kernel(...), 2D)``:
         selects the hand-written polyphase FIR; ``None`` selects one of the
-        library formulations below.
+        library formulations below (references: no chunk step passes them).
     f: float32 ``(2N,)`` scaled raw interleaved samples.
     itail: float32 ``(2(L-1),)`` carried raw-domain tail.
     kernel_il: ``(2C, 1, 2L)`` from :func:`interleave_kernel`: the plain
@@ -302,7 +289,7 @@ def ddc_apply_il(
         the contiguous ``(rows, stride)`` reshape.
 
     The convolutions run with cuDNN's TF32 off; the matmuls need
-    ``torch.backends.cuda.matmul.allow_tf32`` off (the pipeline checks it).
+    ``torch.backends.cuda.matmul.allow_tf32`` off (torch's default).
 
     Returns ``(yr, yi, new_itail, phase_next)``; ``yr/yi`` shaped ``(C, m)``.
     """

@@ -59,7 +59,7 @@ def measure_step_resident_msps(
     consumption; on the CPU with the host clock.
 
     Returns ``{"msps", "x_realtime", "reps", "super_chunks", "chunk_size",
-    "channels", "channelizer", "formulation", "elapsed_s", "device"}``.
+    "channels", "channelizer", "elapsed_s", "device"}``.
     """
     import torch
 
@@ -67,8 +67,8 @@ def measure_step_resident_msps(
     from ..ops.ddc import DDCPlan, bandpass_kernel
     from ..ops.nco import nco_increment_fixed
     from ..ops.resample import ResamplePlan, design_resampler_kernel
+    from ..utils.device import resolve_device
     from .filters import compute_decimation, design_channel_filter
-    from .pipeline import resolve_device
     from .step import build_chunk_step
 
     dev = resolve_device(device)
@@ -143,15 +143,14 @@ def measure_step_resident_msps(
         "chunk_size": ddc_plan.chunk_size,
         "channels": len(incs),
         "channelizer": step.channelizer,
-        "formulation": step.formulation,
         "elapsed_s": elapsed,
         "device": str(dev),
     }
     LOG.info(
         "full-step resident: %.0f Msps = %.1fx realtime of the %.1f MS/s workload "
-        "(%d reps x %d-chunk group, chunk %d, %d channel(s), channelizer %s/%s)",
+        "(%d reps x %d-chunk group, chunk %d, %d channel(s), channelizer %s)",
         msps, out["x_realtime"], sample_rate / 1e6, reps, S, ddc_plan.chunk_size,
-        len(incs), step.channelizer, step.formulation,
+        len(incs), step.channelizer,
     )
     return out
 

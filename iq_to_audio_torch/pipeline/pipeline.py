@@ -47,6 +47,7 @@ from ..ops.ddc import DDCPlan, bandpass_kernel
 from ..ops.nco import nco_increment_fixed
 from ..ops.resample import ResamplePlan, design_resampler_kernel
 from ..ref.chain import choose_mix_sign
+from ..utils.device import resolve_device
 from ..utils.freq import detect_center_frequency
 from .config import ProcessingConfig
 from .filters import compute_decimation, design_channel_filter, tune_chunk_size
@@ -82,28 +83,9 @@ class ProcessingResult:
     input_samples: int = 0
     #: chunk steps run on the device, the zero-padded final group included
     dispatched_chunks: int = 0
-    #: which channelizer ran (``conv``, ``fft``, ``native``) and, for
-    #: ``conv``, in which formulation (``poly`` is the hand-written kernel)
+    #: which channelizer ran: ``conv`` (the hand-written kernel), ``fft``
+    #: or ``native``
     channelizer: str = ""
-    formulation: str = ""
-
-
-def resolve_device(requested: str | None) -> torch.device:
-    """The run's device: ``None`` means the card.  There is no fallback to
-    the CPU: without a CUDA device only an explicit ``"cpu"`` runs."""
-    device = torch.device(requested or "cuda")
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "No CUDA device is available; pass device='cpu' to run the "
-                "plain torch path on the CPU."
-            )
-        if torch.backends.cuda.matmul.allow_tf32:
-            raise RuntimeError(
-                "torch.backends.cuda.matmul.allow_tf32 is True: TF32 misses "
-                "the -60 dB audio contract; the pipeline needs full float32."
-            )
-    return device
 
 
 class ProcessingCancelled(RuntimeError):  # noqa: N818 - the JAX package's name
@@ -713,7 +695,6 @@ class ProcessingPipeline:
             input_samples=loop.processed_samples,
             dispatched_chunks=loop.dispatched,
             channelizer=step.channelizer,
-            formulation=step.formulation,
         )
 
     def _save_stage_plots(self, snapshots, freqs, center_freq, sample_rate, fs_channel) -> None:
@@ -736,7 +717,7 @@ class ProcessingPipeline:
                     )
                     for name, buf in snapshots.items()
                 }
-                save_stage_psd(per_channel, path, center_freq)
+                save_stage_psd(per_channel, path, center_freq, device=cfg.device)
             LOG.info("Saved stage PSD plots to %s", cfg.plot_stages_path)
         except Exception as exc:  # plotting is best effort
             LOG.warning("Failed to save stage plots: %s", exc)

@@ -11,13 +11,13 @@ are written in place.
 
 Channelizers (``IQ2A_CHANNELIZER`` pins one; :func:`build_chunk_step`):
 
-* ``conv``: the decimating FIR over the raw interleaved stream.  Its
-  default formulation is the hand-written polyphase FIR
+* ``conv``: the decimating FIR over the raw interleaved stream, as the
+  hand-written polyphase FIR
   (:func:`iq_to_audio_torch.ops.poly_fir.poly_fir_il`: the CUDA kernel on
-  the card, its plain version on CPU tensors); ``IQ2A_MM`` / ``IQ2A_CONVJ``
-  select the library formulations (shifted dense matmul, lane-filling
-  J-conv, plain ``conv1d``).  The default on a CUDA device and the only
-  stage-snapshot path.
+  the card, its plain version on CPU tensors).  The default on a CUDA
+  device and the only stage-snapshot path.  The library formulations of
+  the same filter (``conv1d``, J-conv, shifted dense matmul) are reference
+  functions of :mod:`iq_to_audio_torch.ops.ddc` and no step runs them.
 * ``fft``: the overlap-save FFT bank (:mod:`iq_to_audio_torch.ops.osfir`);
   its state carries the ``(2, L-1)`` pair tail.
 * ``native``: the C++ phase-split channelizer
@@ -109,9 +109,6 @@ def chunk_step(
     channelizer: str = "conv",
     ddc_kernel: torch.Tensor | None = None,
     ddc_kernel_pair: torch.Tensor | None = None,
-    j_kernel: torch.Tensor | None = None,
-    mm_kernel: torch.Tensor | None = None,
-    j_lanes: int = 1,
     os_plan=None,
 ) -> dict:
     """One chunk.  Returns the new state; the outputs of the chunk are
@@ -121,9 +118,9 @@ def chunk_step(
     and the decimated baseband into ``accs["iq_r"]``/``accs["iq_i"]`` at
     ``slot * m`` when ``dump_iq`` or ``pass_through``.
 
-    ``ddc_kernel`` is what the channelizer filters with: the interleaved
-    ``(2C, 1, 2L)`` kernel (``conv`` without ``poly_w``), the complex bank
-    (``fft``) or the reversed real lowpass taps (``native``).  A ``stages``
+    ``conv`` filters with ``poly_w``; ``ddc_kernel`` is what the other
+    channelizers filter with: the complex bank (``fft``) or the reversed
+    real lowpass taps (``native``).  A ``stages``
     dict asks for the stage snapshots (conv channelizer only) and is filled
     with them: ``input``/``mixed``/``filtered`` at the input rate and
     ``decimated`` at the channel rate as (re, im) pairs, then the
@@ -151,8 +148,7 @@ def chunk_step(
     else:
         f = _device_scale(raw, codec)
         yr, yi, fir_tail, phase_next = ddc_apply_il(
-            ddc_plan, poly_w, f, state["fir_tail"], state["phase"], inc_lo,
-            kernel_il=ddc_kernel, j_kernel=j_kernel, j_lanes=j_lanes, mm_kernel=mm_kernel,
+            ddc_plan, poly_w, f, state["fir_tail"], state["phase"], inc_lo
         )
     new_state = {"phase": phase_next, "fir_tail": fir_tail}
     if stages is not None:
@@ -208,14 +204,9 @@ class ChunkStep:
     pass_through: bool = False
     dump_iq: bool = False
     channelizer: str = "conv"
-    #: ``poly`` (hand kernel), ``mm``, ``jconv`` or ``conv1d`` for ``conv``
-    formulation: str = "poly"
     os_plan: object = None
     _ddc_kernel: torch.Tensor | None = None  # see chunk_step
     _ddc_kernel_pair: torch.Tensor | None = None  # stage snapshots only
-    _j_kernel: torch.Tensor | None = None
-    _mm_kernel: torch.Tensor | None = None
-    j_lanes: int = 1
 
     @property
     def chunk_size(self) -> int:
@@ -274,7 +265,6 @@ class ChunkStep:
             dump_iq=self.dump_iq, stages=stages, channelizer=self.channelizer,
             ddc_kernel=self._ddc_kernel,
             ddc_kernel_pair=self._ddc_kernel_pair if stages is not None else None,
-            j_kernel=self._j_kernel, mm_kernel=self._mm_kernel, j_lanes=self.j_lanes,
             os_plan=self.os_plan,
         )
 
@@ -338,27 +328,6 @@ def choose_channelizer(
     if (on_cpu and not want_stages) or choice == "native":
         return "fft"
     return "conv"
-
-
-def choose_formulation(device: torch.device) -> str:
-    """Formulation of the ``conv`` channelizer from ``IQ2A_MM`` and
-    ``IQ2A_CONVJ``, with the JAX package's meanings: ``IQ2A_MM=1`` the
-    shifted dense matmul; ``IQ2A_CONVJ=1`` the lane-filling J-conv;
-    ``IQ2A_MM=0`` the J-conv on a CUDA device and the plain conv on the CPU;
-    ``IQ2A_CONVJ=0`` the plain ``conv1d``.  Both unset: ``poly``, the
-    hand-written polyphase FIR (what the JAX package reaches with
-    ``IQ2A_PALLAS=1``)."""
-    convj_env = os.environ.get("IQ2A_CONVJ", "")
-    mm_env = os.environ.get("IQ2A_MM", "")
-    if convj_env == "0":
-        return "conv1d"
-    if mm_env == "1":
-        return "mm"
-    if convj_env == "1":
-        return "jconv"
-    if mm_env == "0":
-        return "jconv" if device.type != "cpu" else "conv1d"
-    return "poly"
 
 
 def build_chunk_step(
@@ -434,9 +403,7 @@ def build_chunk_step(
     def dev(arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
-    os_plan = None
-    poly_w = j_kernel = mm_kernel = None
-    j_lanes = 1
+    os_plan = poly_w = ddc_kernel = None
     # the pair kernel feeds only the stage-snapshot path
     pair_kernel = (
         dev(np.asarray(ddc_kernel_np, dtype=np.float32))
@@ -447,7 +414,6 @@ def build_chunk_step(
         # the reversed real lowpass taps; the per-channel bandpass rotation
         # is the separable oscillator inside the kernel, driven by `incs`
         ddc_kernel = dev(np.asarray(taps_np, dtype=np.float32)[::-1])
-        formulation = "native"
     elif channelizer == "fft":
         from ..ops.ddc import bank_from_kernel
         from ..ops.osfir import OverlapSavePlan
@@ -457,39 +423,10 @@ def build_chunk_step(
             fft_size=fft_size, cpu_tuned=device.type == "cpu",
         )
         ddc_kernel = dev(bank_from_kernel(ddc_kernel_np, os_plan))
-        formulation = "fft"
     else:
         # IQ order and Q inversion are folded into the interleaved taps
         kernel_il_np = interleave_kernel(ddc_kernel_np, iq_order)
-        ddc_kernel = None
-        formulation = choose_formulation(device)
-        j = min(max(1, 128 // kernel_il_np.shape[0]), ddc_plan.out_size)
-        if formulation in ("mm", "jconv") and j <= 1:
-            formulation = "conv1d"
-        if formulation == "poly":
-            poly_w = dev(build_poly_kernel(kernel_il_np, 2 * ddc_plan.decimation))
-        elif formulation == "mm":
-            from ..ops.ddc import shift_matmul_kernel
-
-            j_lanes = j
-            mm_kernel = dev(shift_matmul_kernel(kernel_il_np, ddc_plan.decimation, j))
-            LOG.info(
-                "Channelizer: shifted-dense-matmul (J=%d, %d shifts x stride %d)",
-                j, mm_kernel.shape[0], mm_kernel.shape[1],
-            )
-        elif formulation == "jconv":
-            from ..ops.ddc import j_lanes_kernel
-
-            j_lanes = j
-            j_kernel = dev(j_lanes_kernel(kernel_il_np, ddc_plan.decimation, j))
-            LOG.info(
-                "Channelizer: lane-filling J-conv (J=%d, kernel width %d)",
-                j, j_kernel.shape[-1],
-            )
-        elif formulation == "conv1d":
-            ddc_kernel = dev(kernel_il_np)
-        else:
-            raise ValueError(f"Unknown conv formulation '{formulation}'")
+        poly_w = dev(build_poly_kernel(kernel_il_np, 2 * ddc_plan.decimation))
     return ChunkStep(
         ddc_plan=ddc_plan,
         rs_plan=rs_plan,
@@ -510,11 +447,7 @@ def build_chunk_step(
         pass_through=pass_through,
         dump_iq=dump_iq,
         channelizer=channelizer,
-        formulation=formulation,
         os_plan=os_plan,
         _ddc_kernel=ddc_kernel,
         _ddc_kernel_pair=pair_kernel,
-        _j_kernel=j_kernel,
-        _mm_kernel=mm_kernel,
-        j_lanes=j_lanes,
     )

@@ -1,6 +1,7 @@
 """The port's spectral analysis against the JAX package's: the numpy
 backend bit for bit, the ``torch`` and ``matmul`` backends within the
-tolerances the JAX package's own tests give its device backends."""
+tolerances the JAX package's own tests give its device backends; and that
+every analysis entry point runs on the card unless the CPU is asked for."""
 
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ def _blocks(iq, size):
 def test_compute_psd_numpy_bit_identical(nfft):
     iq = make_tone_iq(FS, 0.2, 5_000.0)
     f_j, p_j = jspec.compute_psd(iq, FS, nfft=nfft)
-    f_t, p_t = compute_psd(iq, FS, nfft=nfft)
+    f_t, p_t = compute_psd(iq, FS, nfft=nfft, backend="numpy")
     np.testing.assert_array_equal(f_t, f_j)
     np.testing.assert_array_equal(p_t, p_j)
 
@@ -36,7 +37,9 @@ def test_compute_psd_numpy_bit_identical(nfft):
 def test_streaming_waterfall_numpy_bit_identical(hop):
     iq = make_nfm_iq(FS, 1.0, 5_000.0)
     want = jspec.streaming_waterfall(_blocks(iq, 5_000), FS, nfft=1024, hop=hop, max_slices=50)
-    got = streaming_waterfall(_blocks(iq, 5_000), FS, nfft=1024, hop=hop, max_slices=50)
+    got = streaming_waterfall(
+        _blocks(iq, 5_000), FS, nfft=1024, hop=hop, max_slices=50, backend="numpy"
+    )
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
     assert isinstance(got[2], WaterfallResult) and got[3] == want[3]
@@ -72,16 +75,24 @@ def test_matmul_backend_matches_numpy():
 
 
 def test_matmul_backend_large_nfft_falls_back():
+    """Above its cap the matmul backend is refused: it never drops to the
+    host FFT behind the caller's back.  At the cap it runs."""
     iq = make_tone_iq(FS, 0.4, 5_000.0)
-    _, p1 = compute_psd(iq, FS, nfft=1 << 14, backend="numpy")
-    _, p2 = compute_psd(iq, FS, nfft=1 << 14, backend="matmul", device="cpu")
-    np.testing.assert_allclose(p1, p2, atol=1e-9)
+    for device in ("cpu", None):
+        with pytest.raises(ValueError, match="stops at nfft=4096"):
+            compute_psd(iq, FS, nfft=1 << 14, backend="matmul", device=device)
+    with pytest.raises(ValueError, match="stops at nfft=4096"):
+        streaming_waterfall(_blocks(iq, 20_000), FS, nfft=8192, backend="matmul", device="cpu")
+    _, p1 = compute_psd(iq, FS, nfft=4096, backend="numpy")
+    _, p2 = compute_psd(iq, FS, nfft=4096, backend="matmul", device="cpu")
+    hot = p1 > p1.max() - 80.0
+    np.testing.assert_allclose(p1[hot], p2[hot], atol=0.3)
 
 
 @pytest.mark.parametrize("backend", ["torch", "matmul"])
 def test_waterfall_device_backends_match_numpy(backend):
     iq = make_nfm_iq(FS, 0.5, 5_000.0)
-    want = streaming_waterfall(_blocks(iq, 6_000), FS, nfft=1024, max_slices=40)
+    want = streaming_waterfall(_blocks(iq, 6_000), FS, nfft=1024, max_slices=40, backend="numpy")
     got = streaming_waterfall(
         _blocks(iq, 6_000), FS, nfft=1024, max_slices=40, backend=backend, device="cpu"
     )
@@ -101,11 +112,71 @@ def test_backend_names_and_device_default():
         compute_psd(np.empty(0, np.complex64), FS)
     with pytest.raises(ValueError, match="enough samples"):
         streaming_waterfall([iq[:100]], FS, nfft=1024)
-    if not torch.cuda.is_available():
-        # a device backend runs on the card unless the CPU is asked for
-        for backend in ("torch", "matmul"):
-            with pytest.raises(RuntimeError, match="CUDA"):
-                compute_psd(iq, FS, nfft=1024, backend=backend)
+
+
+needs_no_card = pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a card")
+
+
+@needs_no_card
+@pytest.mark.parametrize("backend", [None, "torch", "matmul"])
+@pytest.mark.parametrize("entry", ["compute_psd", "streaming_waterfall"])
+def test_analysis_runs_on_the_card_unless_cpu_is_asked_for(entry, backend):
+    """With no backend and no device named the analysis asks for the card and,
+    without one, raises the pipeline's message; it never carries on on the
+    host.  ``device="cpu"`` and ``backend="numpy"`` are the explicit requests."""
+    iq = make_nfm_iq(FS, 0.2, 5_000.0)
+    kw = {} if backend is None else {"backend": backend}
+
+    def call(**more):
+        if entry == "compute_psd":
+            return compute_psd(iq, FS, nfft=1024, **kw, **more)[1]
+        return streaming_waterfall(_blocks(iq, 4_000), FS, nfft=1024, **kw, **more)[1]
+
+    with pytest.raises(RuntimeError, match="No CUDA device is available; pass device='cpu'"):
+        call()
+    with pytest.raises(RuntimeError, match="No CUDA device"):
+        call(device="cuda")
+    got = call(device="cpu")
+    if entry == "compute_psd":
+        want = compute_psd(iq, FS, nfft=1024, backend="numpy")[1]
+    else:
+        want = streaming_waterfall(_blocks(iq, 4_000), FS, nfft=1024, backend="numpy")[1]
+    hot = want > want.max() - 70.0
+    np.testing.assert_allclose(got[hot], want[hot], atol=0.3)
+
+
+@needs_no_card
+@pytest.mark.parametrize("entry", ["plot_psd", "save_stage_psd", "save_capture_spectrum"])
+def test_plots_run_on_the_card_unless_cpu_is_asked_for(tmp_path, entry):
+    pytest.importorskip("matplotlib")
+    from matplotlib.figure import Figure
+
+    from iq_to_audio_torch.analysis import visualize
+    from iq_to_audio_torch.io.formats import resolve_input_format
+    from iq_to_audio_torch.io.writer import write_stereo_wav
+
+    iq = make_nfm_iq(FS, 0.5, 5_000.0)
+    out = tmp_path / "plot.png"
+
+    def call(**kw):
+        if entry == "plot_psd":
+            visualize.plot_psd(Figure().subplots(), iq, FS, "input", **kw)
+            out.write_bytes(b"x")
+        elif entry == "save_stage_psd":
+            visualize.save_stage_psd({"input": (iq, FS), "audio": (iq.real, FS)}, out, **kw)
+        else:
+            cap = tmp_path / "cap.wav"
+            write_stereo_wav(cap, np.column_stack([iq.real, iq.imag]) * 0.6, int(FS))
+            spec, _ = resolve_input_format(cap, requested=None)
+            visualize.save_capture_spectrum(
+                cap, out, spec=spec, sample_rate=FS, seconds=0.4, nfft=1024, **kw
+            )
+
+    with pytest.raises(RuntimeError, match="No CUDA device"):
+        call()
+    assert not out.exists()
+    call(device="cpu")
+    assert out.stat().st_size > 0
 
 
 def test_matmul_backend_keeps_the_tf32_setting():

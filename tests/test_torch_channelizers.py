@@ -1,7 +1,7 @@
 """Every ``ddc_apply_il`` formulation of the port (plain conv, J-conv,
 shifted matmul) and the full-rate stages against the JAX package's, on the
 CPU at a small size: outputs < -100 dB, NCO phase and carried tail bit for
-bit, chunked equal to whole; ``lane_formulation`` over its variables."""
+bit, chunked equal to whole."""
 
 from __future__ import annotations
 
@@ -163,20 +163,3 @@ def test_fullrate_stages_match_jax(decim, offsets):
     )
     assert error_db(got[2][:, ::decim].numpy(), yr.numpy()) < -100.0
     assert error_db(got[3][:, ::decim].numpy(), yi.numpy()) < -100.0
-
-
-@pytest.mark.parametrize(
-    "mm_env,device,want",
-    [
-        ("1", "cpu", "mm"), ("1", "cuda", "mm"), ("0", "cpu", "jconv"), ("0", "cuda", "jconv"),
-        ("", "cpu", "jconv"), ("", "cuda", "mm"), (None, "cpu", "jconv"), (None, "cuda:0", "mm"),
-    ],
-)
-def test_lane_formulation(monkeypatch, mm_env, device, want):
-    if mm_env is None:
-        monkeypatch.delenv("IQ2A_MM", raising=False)
-    else:
-        monkeypatch.setenv("IQ2A_MM", mm_env)
-    assert tddc.lane_formulation(device) == want
-    if device == "cpu":  # the JAX package on its CPU backend
-        assert jddc.lane_formulation() == want

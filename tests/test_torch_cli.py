@@ -216,3 +216,21 @@ def test_no_card_and_no_device_flag_fails(capture, tmp_path, caplog):
     rc = tcli.main(["--benchmark", "--cli", "--benchmark-seconds", "1",
                     "--benchmark-sample-rate", "250000"])
     assert rc == 1
+
+
+@pytest.mark.parametrize("with_target", [False, True])
+def test_spectrum_png_without_a_card_and_no_device_flag_fails(capture, tmp_path, caplog, with_target):
+    """``--spectrum-png`` is an entry point like the run: at the default
+    ``--device`` it asks for the card and never renders on the host."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device runs on it")
+    pytest.importorskip("matplotlib")
+    png, out = tmp_path / "never.png", tmp_path / "never.wav"
+    argv = ["--cli", "--in", str(capture), "--spectrum-png", str(png), "--spectrum-seconds", "0.5"]
+    if with_target:
+        argv += ["--ft", str(CENTER + OFFSET), "--out", str(out)]
+    with caplog.at_level("ERROR"):
+        rc = tcli.main(argv)
+    assert rc == 1 and not png.exists() and not out.exists()
+    assert "Spectrum rendering failed" in caplog.text
+    assert "No CUDA device is available" in caplog.text

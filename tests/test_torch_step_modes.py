@@ -23,7 +23,7 @@ from iq_to_audio_tpu.pipeline import step as jstep
 
 from iq_to_audio_torch.convert import accs_from_jax, state_from_jax, state_to_jax
 from iq_to_audio_torch.demod import create_decoder
-from iq_to_audio_torch.ops.ddc import DDCPlan, bandpass_kernel
+from iq_to_audio_torch.ops.ddc import DDCPlan, bandpass_kernel, interleave_kernel
 from iq_to_audio_torch.ops.nco import nco_increment_fixed
 from iq_to_audio_torch.ops.resample import ResamplePlan, design_resampler_kernel
 from iq_to_audio_torch.pipeline import step as tstep
@@ -48,8 +48,9 @@ def _geometry(pass_through=False, target=16_384):
 
 def _build_pair(monkeypatch, *, channelizer, pass_through=False, dump_iq=False,
                 want_stages=False, env=(), iq_order="iq"):
-    """The JAX step and the port's step for one configuration, both chosen
-    through the same environment variables."""
+    """The JAX step and the port's step for one configuration.  ``env`` picks
+    the JAX package's formulation of the conv channelizer; the port reads
+    only ``IQ2A_CHANNELIZER`` and runs its one formulation against each."""
     monkeypatch.setenv("IQ2A_CHANNELIZER", channelizer)
     for k in ("IQ2A_CONVJ", "IQ2A_MM", "IQ2A_PALLAS", "IQ2A_ACC", "IQ2A_SUPER"):
         monkeypatch.delenv(k, raising=False)
@@ -137,14 +138,14 @@ def _check_outputs(jstate, jaccs, tstate, taccs, plan, n_chunks=3, iq_db=-100.0)
 
 
 CHANNELIZERS = [
-    ("conv", ()),  # the hand kernel's plain version against the JAX plain conv
+    # the hand kernel's plain version against each JAX formulation of the conv
+    ("conv", ()),
     ("conv", (("IQ2A_CONVJ", "0"),)),
     ("conv", (("IQ2A_CONVJ", "1"),)),
     ("conv", (("IQ2A_MM", "1"),)),
     ("fft", ()),
     pytest.param("native", (), marks=pytest.mark.skipif(not HAVE_GXX, reason="needs g++")),
 ]
-FORMS = ["poly", "conv1d", "jconv", "mm", "fft", "native"]
 
 
 @pytest.mark.parametrize("mode", ["audio", "dump_iq", "pass_through"])
@@ -155,10 +156,7 @@ def test_step_mode_matches_jax(monkeypatch, mode, channelizer, env):
         pass_through=mode == "pass_through", dump_iq=mode == "dump_iq",
     )
     assert js.channelizer == ts.channelizer == channelizer
-    want_form = FORMS[CHANNELIZERS.index((channelizer, env))] if channelizer != "native" else "native"
-    assert ts.formulation == want_form
     assert (ts.acc_chunks, ts.super_chunks) == (js.acc_chunks, js.super_chunks)
-    assert ts.j_lanes == js.j_lanes
     assert set(ts.init_accs()) == {
         "audio": {"audio"}, "dump_iq": {"audio", "iq_r", "iq_i"}, "pass_through": {"iq_r", "iq_i"},
     }[mode]
@@ -237,18 +235,34 @@ def test_native_refused_on_cuda_device():
     )
 
 
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
 @pytest.mark.parametrize(
-    "convj,mm,device,want",
-    [
-        ("", "", "cpu", "poly"), ("", "", "cuda", "poly"), ("0", "", "cuda", "conv1d"),
-        ("0", "1", "cpu", "conv1d"), ("1", "", "cpu", "jconv"), ("1", "1", "cpu", "mm"),
-        ("", "1", "cuda", "mm"), ("", "0", "cuda", "jconv"), ("", "0", "cpu", "conv1d"),
-    ],
+    "env", [(), (("IQ2A_MM", "1"),), (("IQ2A_MM", "0"),), (("IQ2A_CONVJ", "1"),), (("IQ2A_CONVJ", "0"),)]
 )
-def test_choose_formulation(monkeypatch, convj, mm, device, want):
-    monkeypatch.setenv("IQ2A_CONVJ", convj)
-    monkeypatch.setenv("IQ2A_MM", mm)
-    assert tstep.choose_formulation(torch.device(device)) == want
+def test_conv_channelizer_is_the_hand_kernel_whatever_the_environment(monkeypatch, env, device):
+    """The conv channelizer has one formulation, the polyphase tensor of the
+    hand kernel: the JAX package's formulation variables select nothing."""
+    from iq_to_audio_torch.ops.poly_fir import build_poly_kernel
+
+    monkeypatch.delenv("IQ2A_CHANNELIZER", raising=False)
+    for k, v in env:
+        monkeypatch.setenv(k, v)
+    assert tstep.choose_channelizer(
+        torch.device(device), want_stages=device == "cpu", have_taps=True
+    ) == "conv"
+    plan, rs_plan, fs_ch, taps, incs = _geometry()
+    kernel_np = bandpass_kernel(taps, incs)
+    dec = create_decoder("nfm", deemph_us=300.0, agc_enabled=True)
+    dec.setup(fs_ch)
+    step = tstep.build_chunk_step(
+        ddc_plan=plan, rs_plan=rs_plan, ddc_kernel_np=kernel_np,
+        rs_kernel_np=design_resampler_kernel(rs_plan.up, rs_plan.down), incs_fixed=incs,
+        codec="pcm_s16le", iq_order="qi", decoder=dec, device=torch.device("cpu"),
+        channelizer="conv",
+    )
+    assert step.channelizer == "conv" and step._ddc_kernel is None and step.os_plan is None
+    want = build_poly_kernel(interleave_kernel(kernel_np, "qi"), 2 * plan.decimation)
+    np.testing.assert_array_equal(step._poly_w.numpy(), want)
 
 
 SIZING = [
