@@ -46,6 +46,12 @@ script exits non-zero:
    whose WAV is byte-identical to the plain run's, and ``--benchmark``);
 7. the spectral analysis at its defaults (the card) against the host's
    float64 FFT, and ``measure_step_resident_msps`` at one and five channels;
+   then burst mode on the flagship capture (``HeteroExecutor`` with one
+   host-CPU worker over eight segments, twice on one executor, each with the
+   launch counts set to 0 just before): the device must take segments
+   through the hand kernel and the spliced audio must agree with the plain
+   run and the twin (< -60 dB); the device stream alone; and the executor's
+   resident-compute probe of the kernel;
 8. the device time of one ``chunk_step`` at one and at five channels (CUDA
    events, then ``torch.profiler`` for the busy time) beside the kernel's
    share of it, and last a run with ``profile_dir`` (its trace must hold
@@ -1029,6 +1035,97 @@ def check_resident() -> dict:
     return row
 
 
+def check_burst(capture: Path, work: Path, runs: dict, resident: dict) -> dict:
+    """Burst mode (``pipeline/hetero.py``) on the flagship capture, the
+    device stream on the card: ``HeteroExecutor(cpu_workers=1,
+    n_segments=8)`` twice on one executor (``cold``: the worker's start-up
+    and channelizer build inside the run; ``warm``: rates and worker kept),
+    each with the launch counts set to 0 just before; then the device stream
+    alone (``cpu_workers=0``: one claim, no lead-in); then the executor's
+    resident-compute probe of the hand kernel beside ``resident``'s
+    ``fn_super`` rate."""
+    from iq_to_audio_torch.pipeline.hetero import HeteroExecutor
+
+    plain = runs["plain"]
+    plain_audio = read_wav(plain.output_paths[0])[0][:, 0]
+    iq = head_iq(capture)
+
+    def config(name: str) -> ProcessingConfig:
+        return ProcessingConfig(
+            in_path=capture, target_freq=CENTER + OFFSET, center_freq=CENTER, demod_mode="nfm",
+            agc_enabled=True, output_path=work / name, device="cuda",
+        )
+
+    def audio_of(result) -> np.ndarray:
+        audio, rate = read_wav(result.output_paths[0])
+        audio = audio[:, 0]
+        if rate != 48_000 or audio.shape != plain_audio.shape or not np.all(np.isfinite(audio)):
+            raise AssertionError(f"burst: {audio.shape} samples at {rate} Hz")
+        return audio
+
+    row: dict = {"phase": "burst", "plain_loop_seconds": plain.loop_seconds}
+    with HeteroExecutor(cpu_workers=1, n_segments=8) as ex:
+        for name in ("cold", "warm"):
+            reset_counts()
+            t0 = time.perf_counter()
+            result = ex.run(config(f"burst_{name}.wav"))
+            run_seconds = time.perf_counter() - t0
+            launches = read_counts()
+            stats = ex.last_stats
+            audio = audio_of(result)
+            err_plain = error_db(audio, plain_audio)
+            err_twin, err_twin_raw = twin_err_db(audio, iq, OFFSET, "nfm", True, result.mix_sign)
+            row[name] = {
+                **{k: stats[k] for k in (
+                    "device_segments", "cpu_segments", "device_runs", "device_x", "cpu_x",
+                    "device_abstained", "device_seconds", "cpu_seconds", "loop_seconds",
+                )},
+                "wire_probe": stats["wire_probe"],
+                "launches": launches,
+                "run_seconds": run_seconds,
+                "err_vs_plain_db": err_plain,
+                "twin_err_db": err_twin,
+                "twin_err_unquantised_db": err_twin_raw,
+            }
+            il = launches["poly_fir_il"]
+            if (stats["device_segments"] < 1 or stats["device_abstained"]
+                    or il <= 0 or il < stats["device_runs"]):
+                raise AssertionError(f"burst {name}: the device stream took no share: {row[name]}")
+            if not (err_plain < -60.0 and err_twin < -60.0):
+                raise AssertionError(
+                    f"burst {name}: {err_plain:.1f} dB against the plain run, "
+                    f"{err_twin:.1f} dB against the twin"
+                )
+        row["segments"] = stats["device_segments"] + stats["cpu_segments"]
+        row["device_compute_msps"] = ex.device_compute_msps
+    with HeteroExecutor(cpu_workers=0, n_segments=8) as ex:
+        reset_counts()
+        result = ex.run(config("burst_alone.wav"))
+        launches = read_counts()
+        stats = ex.last_stats
+    audio = audio_of(result)
+    err_alone = error_db(audio, plain_audio)
+    identical = result.output_paths[0].read_bytes() == plain.output_paths[0].read_bytes()
+    row["device_alone"] = {
+        "device_runs": stats["device_runs"], "device_segments": stats["device_segments"],
+        "loop_seconds": stats["loop_seconds"], "launches": launches,
+        "err_vs_plain_db": err_alone, "byte_identical_to_plain": identical,
+    }
+    if stats["device_runs"] != 1 or launches["poly_fir_il"] <= 0 or not err_alone < -60.0:
+        raise AssertionError(f"burst device alone: {row['device_alone']}")
+    decim, _ = compute_decimation(SAMPLE_RATE, 96_000.0)
+    taps = len(design_channel_filter(SAMPLE_RATE, 12_500.0, decim))
+    reset_counts()
+    msps = HeteroExecutor(cpu_workers=0).measure_resident_compute(taps, decim)
+    probe_launches = read_counts()["poly_fir_il"]
+    if not (msps and msps > 0 and probe_launches > 0):
+        raise AssertionError(f"burst: resident probe {msps} Msps, {probe_launches} launches")
+    row["resident_probe"] = {"msps": msps, "launches": probe_launches, "taps": taps,
+                             "decimation": decim, "fn_super_msps": resident["1"]["msps"]}
+    emit(row)
+    return row
+
+
 def check_profile(capture: Path, work: Path, plain_bytes: bytes) -> dict:
     """A run with ``profile_dir``: the audio must be the plain run's, and
     the trace must hold one device-kernel event of the hand kernel for each
@@ -1123,7 +1220,8 @@ def main() -> int:
         check_stages(capture)
         check_cli(capture, work, runs["plain_bytes"])
         check_spectrum(capture)
-        check_resident()
+        resident = check_resident()
+        burst = check_burst(capture, work, runs, resident)
         time_chunk_step(1, flagship)
         time_chunk_step(5, batch)
         check_profile(capture, work, runs["plain_bytes"])
@@ -1138,6 +1236,7 @@ def main() -> int:
             also_replaces="iq_to_audio_tpu/ops/pallas_ddc.py:103",
             shift_matmul_ms=chan1["shift_matmul_ms"], fft_bank_ms=chan1["fft_bank_ms"],
             formulations_ms=others,
+            burst_launches={k: burst[k]["launches"]["poly_fir_il"] for k in ("cold", "warm")},
         ),
         kernel_entry(
             "poly_fir_pair", "iq_to_audio_tpu/ops/pallas_ddc.py:313",

@@ -4,15 +4,19 @@ Every flag of the JAX package's command line is parsed.  What one device
 needs runs: ``--cli`` with one to five ``--ft``, ``--demod`` (``none``
 included), ``--dump-iq``, ``--plot-stages``, ``--spectrum-png``,
 ``--probe-only``, ``--preview``, ``--benchmark*``, ``--profile-dir``,
-``--checkpoint-secs``/``--resume``.  One flag is the port's own:
-``--device`` (default ``cuda``; ``cpu`` runs each kernel's plain version),
-where the JAX package reads ``JAX_PLATFORMS``.
+``--checkpoint-secs``/``--resume``, and burst mode (``--burst-segments N``
+above 1 with ``--burst-cpu-workers K``: the capture is split between the
+device stream and K host-CPU worker processes, :mod:`.pipeline.hetero`),
+for one ``--in`` or, one capture after the other, for several.  One flag is
+the port's own: ``--device`` (default ``cuda``; ``cpu`` runs each kernel's
+plain version), where the JAX package reads ``JAX_PLATFORMS``; the burst
+mode's CPU workers run on the CPU whatever it says.
 
 Flags whose module is not ported exit with status 2 and a message naming
 the flag and ``ROADMAP.md``; they never fall through to another path: the
 GUI (``--interactive``, or no ``--cli``), ``--audio-post*``, the
-``digital`` subcommand, ``--burst-segments`` above 1, ``--seq-parallel on``
-and more than one ``--in``.
+``digital`` subcommand, ``--seq-parallel on`` and more than one ``--in``
+without burst mode.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from . import __version__
 from .io.formats import parse_user_format
 from .pipeline.benchmark import run_benchmark
 from .pipeline.config import ProcessingConfig
-from .pipeline.pipeline import ProcessingCancelled, ProcessingPipeline, ProcessingResult
+from .pipeline.pipeline import ProcessingCancelled, ProcessingPipeline
 from .pipeline.preview import run_preview
 from .pipeline.progress import TqdmProgressSink
 
@@ -91,7 +95,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("--in", dest="input_path", required=False, type=Path,
                         action="append", default=None,
-                        help="Input SDR++ baseband WAV file (one capture per run).")
+                        help="Input SDR++ baseband WAV file (repeat it with --burst-segments "
+                             "to process several captures one after the other).")
     parser.add_argument("--ft", dest="target_freqs", type=positive_float, action="append",
                         default=None,
                         help="Target RF frequency in Hz. Supply up to five times to batch additional channels.")
@@ -198,7 +203,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--resume", dest="resume", action="store_true",
                         help="Resume an interrupted run from its checkpoint (requires --checkpoint-secs on the original run).")
     parser.add_argument("--burst-segments", dest="burst_segments", type=int, default=0,
-                        help="Burst mode (not ported: values above 1 are refused; 0 = off).")
+                        help="Burst mode: split the capture into N frame-aligned segments processed "
+                             "concurrently by the device stream and host-CPU workers, then splice "
+                             "the audio (0 or 1 = off).")
     parser.add_argument("--burst-cpu-workers", dest="burst_cpu_workers", type=int, default=1,
                         help="Host-CPU worker subprocesses for --burst-segments (0 = device stream only).")
     parser.add_argument("--seq-parallel", dest="seq_parallel",
@@ -281,12 +288,12 @@ def main(argv: list[str] | None = None) -> int:
         return _unported("--interactive", "the interactive GUI (interactive/)")
     if not args.cli and not args.benchmark:
         return _unported("--cli", "running without --cli launches the interactive GUI, which")
-    if args.burst_segments and args.burst_segments > 1:
-        return _unported("--burst-segments", "burst mode (pipeline/hetero.py)")
     if args.seq_parallel == "on":
         return _unported("--seq-parallel", "sequence parallelism over several devices (parallel/)")
-    if len(args.input_path or []) > 1:
-        return _unported("--in", "more than one capture per run (parallel/dp_runner.py)")
+    if len(args.input_path or []) > 1 and args.burst_segments <= 1:
+        return _unported(
+            "--in", "more than one capture per run without --burst-segments (parallel/dp_runner.py)"
+        )
 
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
@@ -294,7 +301,9 @@ def main(argv: list[str] | None = None) -> int:
     )
 
     frequencies: list[float] = list(args.target_freqs or [])
-    args.input_path = args.input_path[0] if args.input_path else None
+    # keep the list for the multi-capture loop, the first path everywhere else
+    input_paths: list[Path] = list(args.input_path or [])
+    args.input_path = input_paths[0] if input_paths else None
 
     # (codec, container, source) from an explicit --input-format override
     input_fmt: tuple[str | None, str | None, str | None] = (None, None, None)
@@ -407,18 +416,28 @@ def main(argv: list[str] | None = None) -> int:
         LOG.info("Preview written to %s", preview_path)
         return 0
 
+    if len(input_paths) > 1:
+        return _run_captures_in_turn(args, input_paths, frequencies, shared_kwargs)
+
     LOG.info(
         "=== Processing %d target(s): %s ===",
         max(1, len(frequencies)),
         "/".join(f"{f:.0f}" for f in frequencies) or "(probe)",
     )
+    hetero_ex = _burst_executor(args)
     try:
-        result: ProcessingResult = ProcessingPipeline(config).run(progress_sink=_make_sink())
+        if hetero_ex is not None:
+            result = hetero_ex.run(config, progress_sink=_make_sink())
+        else:
+            result = ProcessingPipeline(config).run(progress_sink=_make_sink())
     except ProcessingCancelled:
         LOG.info("Processing cancelled by user.")
         return 0
     except Exception as exc:
         return _die("Processing failed", exc, args.verbose)
+    finally:
+        if hetero_ex is not None:
+            hetero_ex.close()
 
     if args.probe_only:
         info = result.sample_rate_probe
@@ -451,6 +470,65 @@ def _make_sink():
     except RuntimeError as exc:
         LOG.warning("Progress reporting disabled: %s", exc)
         return None
+
+
+def _burst_executor(args: argparse.Namespace):
+    """The burst-mode executor of ``--burst-segments`` above 1, else None."""
+    if args.burst_segments <= 1:
+        return None
+    from .pipeline.hetero import HeteroExecutor
+
+    return HeteroExecutor(
+        cpu_workers=max(0, args.burst_cpu_workers),
+        n_segments=args.burst_segments,
+    )
+
+
+def _run_captures_in_turn(
+    args: argparse.Namespace,
+    paths: list[Path],
+    frequencies: list[float],
+    shared_kwargs: dict,
+) -> int:
+    """Several ``--in`` with ``--burst-segments``: one burst run per
+    capture, one after the other, on one executor.  The shared ``--out``,
+    ``--dump-iq`` and ``--plot-stages`` hints get a per-capture tag (the
+    input's stem, made unique when two captures share a filename), so no
+    capture overwrites another's file.  A failed capture is reported and
+    the loop goes on; the exit status is then 1."""
+    tags: list[str] = []
+    for i, p in enumerate(paths):
+        tag = p.stem
+        if sum(1 for q in paths if q.stem == tag) > 1:
+            tag = f"{tag}{i + 1}"
+        tags.append(tag)
+
+    def _per_capture(base: Path | None, tag: str) -> Path | None:
+        if base is None:
+            return None
+        return base.with_name(f"{base.stem}_{tag}{base.suffix}")
+
+    rc = 0
+    out_base, dump_base, plot_base = args.output_path, args.dump_iq, args.plot_stages
+    hetero_ex = _burst_executor(args)
+    try:
+        for p, tag in zip(paths, tags):
+            args.input_path = p
+            args.output_path = _per_capture(out_base, tag)
+            args.dump_iq = _per_capture(dump_base, tag)
+            args.plot_stages = _per_capture(plot_base, tag)
+            config = _build_batched_config(args, frequencies, shared_kwargs)
+            LOG.info("=== Processing capture %s ===", p)
+            try:
+                hetero_ex.run(config, progress_sink=_make_sink())
+            except ProcessingCancelled:
+                LOG.info("Processing cancelled by user.")
+                return 0
+            except Exception as exc:
+                rc = _die(f"Processing failed for {p}", exc, args.verbose)
+    finally:
+        hetero_ex.close()
+    return rc
 
 
 def _build_batched_config(

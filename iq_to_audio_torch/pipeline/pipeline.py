@@ -169,6 +169,11 @@ class ProcessingPipeline:
         self.config = config
         self._cancelled = False
         self._input_spec: InputFormatSpec | None = None
+        #: a pass that dispatches every chunk and waits for the device, but
+        #: copies nothing back and writes no samples (the outputs stay
+        #: empty): the burst executor's warm pass
+        #: (``HeteroExecutor.run(device_warm_no_fetch=True)``)
+        self.warm_no_fetch = False
 
     def cancel(self) -> None:
         self._cancelled = True
@@ -637,7 +642,7 @@ class ProcessingPipeline:
             loop = _ChunkLoop(
                 step, reader, raw_first, max_input_samples, decimation,
                 tracker=tracker, check_cancel=check_cancel, on_drained=on_drained,
-                want_stages=want_stages,
+                want_stages=want_stages, fetch=not self.warm_no_fetch,
             )
             state = step.init_state(seg_start)
             if resume_data is not None:
@@ -730,14 +735,16 @@ class _ChunkLoop:
     dispatched, and then ``on_drained(state)`` is called: the written
     audio, the counters and the state then describe one point of the stream
     (the checkpoint's schedule).  Otherwise each window is drained one
-    window later, behind the next window's compute.
+    window later, behind the next window's compute.  With ``fetch=False`` no
+    window is copied back or written; the loop ends by waiting for the
+    device.
     """
 
     _COUNTERS = ("processed_samples", "dec_emitted", "rs_in_device", "rs_in_valid", "rs_emitted")
 
     def __init__(
         self, step, reader, raw_first, max_input_samples, decimation, *,
-        tracker, check_cancel, on_drained=None, want_stages=False,
+        tracker, check_cancel, on_drained=None, want_stages=False, fetch=True,
     ):
         self.step = step
         self.reader = reader
@@ -748,6 +755,7 @@ class _ChunkLoop:
         self.check_cancel = check_cancel
         self.on_drained = on_drained
         self.want_stages = want_stages
+        self.fetch = fetch
         #: stage name -> numpy array of the first chunk (complex for pairs)
         self.stage_snapshots: dict[str, np.ndarray] = {}
         self.limit_exhausted = False
@@ -937,6 +945,8 @@ class _ChunkLoop:
                 tracker.advance("demod", float(group_dec))
                 if not pass_through:
                     tracker.advance("encode", float(group_audio))
+            if not self.fetch:
+                continue
             # one D2H per window, queued behind its compute on the stream
             for name, ring in downloads.items():
                 host, di = ring.next()
@@ -949,6 +959,8 @@ class _ChunkLoop:
         if pending is not None:
             drain(*pending)
         self.dispatched = idx
+        if not self.fetch and device.type == "cuda":
+            torch.cuda.synchronize(device)
 
         if resampling and "buf" in last_audio:
             # EOF flush: outputs of the final (incomplete) resampler block

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import make_nfm_iq
+from conftest import error_db, make_nfm_iq
 
 import iq_to_audio_torch as tpkg
 from iq_to_audio_tpu import cli as jcli
@@ -165,7 +165,7 @@ UNPORTED = [
     (["--cli", "--audio-post", "d", "--audio-post-mode", "static", "--audio-post-overwrite"],
      "--audio-post"),
     (["digital", "--audio-dir", "some_dir"], "digital"),
-    (["--cli", "--in", "x.wav", "--ft", "1e6", "--burst-segments", "4"], "--burst-segments"),
+    (["--cli", "--in", "x.wav", "--in", "y.wav", "--ft", "1e6", "--burst-segments", "1"], "--in"),
     (["--cli", "--in", "x.wav", "--ft", "1e6", "--seq-parallel", "on"], "--seq-parallel"),
     (["--cli", "--in", "x.wav", "--in", "y.wav", "--ft", "1e6"], "--in"),
 ]
@@ -233,4 +233,64 @@ def test_spectrum_png_without_a_card_and_no_device_flag_fails(capture, tmp_path,
         rc = tcli.main(argv)
     assert rc == 1 and not png.exists() and not out.exists()
     assert "Spectrum rendering failed" in caplog.text
+    assert "No CUDA device is available" in caplog.text
+
+
+@pytest.fixture()
+def long_capture(tmp_path):
+    """3 s: long enough for a four-segment burst plan."""
+    iq = make_nfm_iq(FS, 3.0, OFFSET)
+    path = tmp_path / f"baseband_{int(CENTER)}Hz_long.wav"
+    write_stereo_wav(path, np.column_stack([iq.real, iq.imag]) * 0.6, int(FS))
+    return path
+
+
+def test_burst_matches_plain_run(long_capture, tmp_path, caplog):
+    """``--burst-segments 4 --burst-cpu-workers 1``: the capture is split
+    between the device stream and one CPU worker, and the spliced WAV is
+    within -60 dB of the same run without burst mode."""
+    base = ["--cli", "--device", "cpu", "--in", str(long_capture), "--ft", str(CENTER + OFFSET),
+            "--chunk", "65536", "--mix-sign", "1"]
+    plain, burst = tmp_path / "plain.wav", tmp_path / "burst.wav"
+    assert tcli.main([*base, "--out", str(plain)]) == 0
+    with caplog.at_level("INFO", logger="iq_to_audio_torch.pipeline.hetero"):
+        rc = tcli.main([*base, "--out", str(burst), "--burst-segments", "4",
+                        "--burst-cpu-workers", "1"])
+    assert rc == 0
+    assert any("segment worker up (backend=cpu)" in r.message for r in caplog.records)
+    assert any("segments (device" in r.message for r in caplog.records)  # not serial
+    a, _ = read_wav(plain)
+    b, _ = read_wav(burst)
+    assert a.shape == b.shape
+    assert error_db(b[:, 0], a[:, 0]) < -60.0
+
+
+def test_burst_over_two_captures(long_capture, tmp_path):
+    """Two ``--in`` with burst mode: one capture after the other, one WAV
+    each, named with the capture's tag."""
+    second = tmp_path / "other" / long_capture.name  # same stem: tags get an index
+    second.parent.mkdir()
+    second.write_bytes(long_capture.read_bytes())
+    out = tmp_path / "out.wav"
+    rc = tcli.main(["--cli", "--device", "cpu", "--in", str(long_capture), "--in", str(second),
+                    "--ft", str(CENTER + OFFSET), "--chunk", "65536", "--out", str(out),
+                    "--burst-segments", "4", "--burst-cpu-workers", "1"])
+    assert rc == 0
+    stem = long_capture.stem
+    outs = sorted(p.name for p in tmp_path.glob("out_*.wav"))
+    assert outs == [f"out_{stem}1.wav", f"out_{stem}2.wav"]
+    a, _ = read_wav(tmp_path / outs[0])
+    b, _ = read_wav(tmp_path / outs[1])
+    assert a.shape == b.shape and abs(a.shape[0] - 3 * 48_000) <= 2
+    assert error_db(b[:, 0], a[:, 0]) < -60.0
+
+
+def test_burst_without_a_card_and_no_device_flag_fails(long_capture, tmp_path, caplog):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device runs on it")
+    out = tmp_path / "never.wav"
+    with caplog.at_level("ERROR"):
+        rc = tcli.main(["--cli", "--in", str(long_capture), "--ft", str(CENTER + OFFSET),
+                        "--out", str(out), "--burst-segments", "4"])
+    assert rc == 1 and not out.exists()
     assert "No CUDA device is available" in caplog.text

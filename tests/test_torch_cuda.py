@@ -515,3 +515,55 @@ def test_resident_rate_on_card():
     assert out["device"].startswith("cuda") and out["channelizer"] == "conv"
     assert out["msps"] > 0
     assert tpoly.poly_fir_il.launches - before == (out["reps"] + 3) * out["super_chunks"]
+
+
+def test_burst_on_card(tmp_path):
+    """Burst mode on the card with one CPU worker: the device stream takes
+    at least one segment through the hand kernel, and the spliced WAV
+    matches a serial run on the card."""
+    from iq_to_audio_torch.pipeline.hetero import HeteroExecutor
+
+    _card()
+    path, target = _nfm_capture(tmp_path, 4.0)
+
+    def cfg(name):
+        return ProcessingConfig(in_path=path, target_freq=target, output_path=tmp_path / name,
+                                chunk_size=65_536, mix_sign_override=1)
+
+    ProcessingPipeline(cfg("serial.wav")).run()
+    before = tpoly.poly_fir_il.launches
+    with HeteroExecutor(cpu_workers=1, n_segments=4, warm_seconds=0.25) as ex:
+        ex.run(cfg("burst.wav"))
+        stats = ex.last_stats
+    launched = tpoly.poly_fir_il.launches - before
+    assert stats["device"].startswith("cuda")
+    assert stats["device_segments"] >= 1 and stats["device_runs"] >= 1
+    assert launched > 0 and launched >= stats["device_runs"]
+    assert stats["wire_probe"]["bw_up"] > 0
+    a = read_wav(tmp_path / "serial.wav")[0]
+    b = read_wav(tmp_path / "burst.wav")[0]
+    assert a.shape == b.shape
+    assert _err_db(b, a) < -60.0
+
+
+def test_burst_on_card_raises_a_failed_kernel(tmp_path, monkeypatch):
+    """A kernel that fails to load on the card fails the burst run and the
+    resident probe; the CPU worker does not hide it."""
+    from iq_to_audio_torch.pipeline.hetero import HeteroExecutor
+
+    _card()
+    path, target = _nfm_capture(tmp_path, 4.0)
+
+    def _broken():
+        raise RuntimeError("poly_fir: the kernel library failed to load")
+
+    monkeypatch.setattr(tpoly, "_library", _broken)
+    monkeypatch.delenv("IQ2A_DEVICE_MSPS", raising=False)
+    cfg = ProcessingConfig(in_path=path, target_freq=target, output_path=tmp_path / "o.wav",
+                           chunk_size=65_536, mix_sign_override=1)
+    with HeteroExecutor(cpu_workers=1, n_segments=4, warm_seconds=0.25) as ex:
+        with pytest.raises(RuntimeError, match="failed to load"):
+            ex.run(cfg)
+    with pytest.raises(RuntimeError, match="failed to load"):
+        HeteroExecutor(cpu_workers=0).measure_resident_compute(1601, 26)
+    assert not (tmp_path / "o.wav").exists()
