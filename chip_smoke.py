@@ -11,11 +11,14 @@ script exits non-zero:
 3. hold each kernel against its plain torch version on the card at the
    main paths' shapes (< -100 dB, and two identical launches bit for bit),
    and time the kernel, the plain version and the one PyTorch call that
-   computes the same function: the interleaved channelizer at one, two and
-   five channels and with a long filter, the pair-input channelizer at one
-   and five channels, a wide geometry (25 MS/s, decimation 260) and ragged
-   ones (an output count that is no multiple of 4; a pair whose second row
-   is 4-byte aligned only);
+   computes the same function (``conv1d``), beside the port's two other
+   library formulations of it (the shifted dense matmul on cuBLAS, the
+   overlap-save FFT bank on cuFFT; a pair input interleaved inside their
+   time): the interleaved channelizer at one, two and five channels and
+   with a long filter, the pair-input channelizer at one and five channels,
+   a wide geometry (25 MS/s, decimation 260) and ragged ones (an output
+   count that is no multiple of 4; a pair whose second row is 4-byte
+   aligned only);
 4. drive each path end to end, with every launch count set to 0 just
    before and read just after:
    a. ``run_benchmark`` on a 10 s synthetic 2.5 MS/s s16 capture with one
@@ -43,9 +46,17 @@ script exits non-zero:
    against it, ``mixed`` and ``filtered`` against the twin), the run with
    ``IQ2A_CHANNELIZER=fft`` (no launch of the hand kernel, audio < -60 dB
    against the plain run), and the command line as a subprocess (a run
-   whose WAV is byte-identical to the plain run's, and ``--benchmark``);
+   whose WAV is byte-identical to the plain run's, and ``--benchmark``),
+   the sequence-parallel run on a world of one (``run_captures_dp`` on an
+   in-process one-rank NCCL group: at least one hand-kernel launch per
+   chunk, audio < -55 dB against the plain run and < -60 dB against the
+   twin, and ``--seq-parallel on`` as a subprocess, its WAV byte-identical
+   to the API run's), and two ``--in`` without burst mode (run in turn on
+   one card, each WAV byte-identical to the plain run's);
 7. the spectral analysis at its defaults (the card) against the host's
-   float64 FFT, and ``measure_step_resident_msps`` at one and five channels;
+   float64 FFT, and ``measure_step_resident_msps`` at one and five channels
+   (CUDA-graph replays, within 0.5-1.05x of the rate the profiler's
+   device-busy time implies);
    then burst mode on the flagship capture (``HeteroExecutor`` with one
    host-CPU worker over eight segments, twice on one executor, each with the
    launch counts set to 0 just before): the device must take segments
@@ -233,7 +244,7 @@ def check_poly_fir(label: str, bandwidth: float, offsets, peaks, layout: str = "
     decim, _ = compute_decimation(sample_rate, 96_000.0)
     taps = design_channel_filter(sample_rate, bandwidth, decim)
     incs = [nco_increment_fixed(o, sample_rate) for o in offsets]
-    kernel = bandpass_kernel(taps, incs)
+    kernel = pair_np = bandpass_kernel(taps, incs)
     n = m * decim
     L = len(taps)
     rng = np.random.default_rng(1234)
@@ -276,6 +287,7 @@ def check_poly_fir(label: str, bandwidth: float, offsets, peaks, layout: str = "
     ms = time_ms(lambda: fn(x, w, decim, m), iters=50, warm=5)
     plain_ms = time_ms(lambda: plain(x, w, decim, m), iters=5, warm=1)
     library_ms = time_ms(library, iters=20)
+    formulations = library_formulations(x, layout, pair_np, decim, m, L, want, label)
     # useful operations only: no zeros of the shifted form, no padding
     flops = 2.0 * m * K * F * out_ch
     nbytes = 4.0 * (x.numel() + w.numel() + out_ch * m)
@@ -305,9 +317,52 @@ def check_poly_fir(label: str, bandwidth: float, offsets, peaks, layout: str = "
         "bound_fp32_ms": 1e3 * max(t_fp32, t_bytes),
         "gflop": flops / 1e9,
         "mbytes": nbytes / 1e6,
+        **formulations,
     }
     emit(row)
     return row
+
+
+def library_formulations(x, layout: str, pair_np, decim: int, m: int, L: int, want, label: str) -> dict:
+    """The channelizer's function through the two library formulations of
+    the port, on a ``kernel_check`` row's input: the shifted dense matmul
+    (cuBLAS, ``fir_il(mm_kernel=...)``) and the overlap-save FFT bank
+    (cuFFT, ``os_fir_bank``), each held against the plain version's output
+    and timed with CUDA events.  Both read the interleaved stream, so for a
+    pair input the one interleave of the ``(2, T)`` relay they need is
+    inside their time."""
+    n = m * decim
+    kil_np = interleave_kernel(pair_np, "iq")
+    j = min(max(1, 128 // kil_np.shape[0]), m)
+    mm = torch.from_numpy(shift_matmul_kernel(kil_np, decim, j)).cuda()
+    os_plan = OverlapSavePlan.for_chunk(L, decim, n)  # power-of-two framing on the card
+    bank = torch.from_numpy(bank_from_kernel(pair_np, os_plan)).cuda()
+    rows = L - 1 + n
+
+    def stream():
+        if layout == "il":
+            return x[: 2 * rows]  # the stream without the floats beyond it
+        return torch.stack([x[0, :rows], x[1, :rows]], dim=-1).reshape(-1)
+
+    def shift_matmul():
+        return fir_il(stream(), decim, m, L, mm_kernel=mm, j_lanes=j)
+
+    def fft_bank():
+        xc = complex_from_interleaved(stream(), "iq")
+        dec, _ = os_fir_bank(os_plan, bank, xc[L - 1 :], xc[: L - 1])
+        return torch.view_as_real(dec).permute(0, 2, 1).reshape(-1, m)  # (2C, m)
+
+    out = {"mm_j_lanes": j, "fft_size": os_plan.fft_size}
+    want_np = want.cpu().numpy()
+    for name, fn, limit in (("shift_matmul", shift_matmul, -100.0), ("fft_bank", fft_bank, -90.0)):
+        got = fn()
+        torch.cuda.synchronize()
+        err = error_db(got.cpu().numpy(), want_np)
+        if tuple(got.shape) != tuple(want.shape) or not err < limit:
+            raise AssertionError(f"{name} {label}: {tuple(got.shape)}, {err:.1f} dB against plain")
+        out[f"{name}_err_db"] = err
+        out[f"{name}_ms"] = time_ms(fn, iters=10, warm=2)
+    return out
 
 
 def step_device_time(fn, steps: int) -> tuple[float | None, dict]:
@@ -1019,17 +1074,39 @@ def check_spectrum(capture: Path) -> dict:
     return row
 
 
+def graph_rate_checks(label: str, probe: dict, S: int = 1) -> dict:
+    """A resident rate from CUDA-graph replays beside the rate the
+    profiler's device-busy time of one replay implies: within 0.5-1.05x of
+    it, with the hand kernel seen ``S`` times per captured call; or a rate
+    that says it is the profiler's busy time (``profiler_busy``)."""
+    ratio = None
+    if probe["method"] == "cuda_graph":
+        ratio = probe["msps"] / probe["busy_msps"] if probe.get("busy_msps") else None
+        if ratio is None or not 0.5 <= ratio <= 1.05:
+            raise AssertionError(f"{label}: graph rate / busy rate {ratio}: {probe}")
+        if probe["kernel_events"] != probe["calls"] * S:
+            raise AssertionError(f"{label}: {probe['kernel_events']} kernel events for "
+                                 f"{probe['calls']} x {S} chunks of a replay")
+    elif probe["method"] != "profiler_busy":
+        raise AssertionError(f"{label}: method {probe['method']} on the card")
+    return {"graph_msps": probe["msps"], "busy_msps": probe.get("busy_msps"),
+            "graph_over_busy": ratio}
+
+
 def check_resident() -> dict:
     rows = {}
     for channels in (1, 5):
         reset_counts()
         out = measure_step_resident_msps(SAMPLE_RATE, channels=channels, device="cuda")
         launches = read_counts()["poly_fir_il"]
-        # a warm-up group, a rough pass of two and the timed pass
-        want = (out["reps"] + 3) * out["super_chunks"]
-        if launches != want or not out["msps"] > 0:
+        S = out["super_chunks"]
+        # the wrapper counts the two warm-up groups and the captured ones:
+        # a replay launches the graph, not the wrapper
+        want = (out["calls"] + 2) * S
+        if out["method"] == "cuda_graph" and launches != want or not out["msps"] > 0:
             raise AssertionError(f"resident C={channels}: {launches} launches, expected {want}")
-        rows[str(channels)] = {**out, "launches": launches}
+        rows[str(channels)] = {**out, "launches": launches,
+                               **graph_rate_checks(f"resident C={channels}", out, S)}
     row = {"phase": "resident", **rows}
     emit(row)
     return row
@@ -1116,12 +1193,102 @@ def check_burst(capture: Path, work: Path, runs: dict, resident: dict) -> dict:
     decim, _ = compute_decimation(SAMPLE_RATE, 96_000.0)
     taps = len(design_channel_filter(SAMPLE_RATE, 12_500.0, decim))
     reset_counts()
-    msps = HeteroExecutor(cpu_workers=0).measure_resident_compute(taps, decim)
+    ex = HeteroExecutor(cpu_workers=0)
+    msps = ex.measure_resident_compute(taps, decim)
+    probe = ex.last_compute_probe
     probe_launches = read_counts()["poly_fir_il"]
     if not (msps and msps > 0 and probe_launches > 0):
         raise AssertionError(f"burst: resident probe {msps} Msps, {probe_launches} launches")
-    row["resident_probe"] = {"msps": msps, "launches": probe_launches, "taps": taps,
-                             "decimation": decim, "fn_super_msps": resident["1"]["msps"]}
+    row["resident_probe"] = {**probe, "launches": probe_launches,
+                             "fn_super_msps": resident["1"]["msps"],
+                             **graph_rate_checks("burst resident probe", probe)}
+    emit(row)
+    return row
+
+
+def check_seq_parallel(capture: Path, work: Path, plain) -> dict:
+    """The flagship capture sequence-parallel on a world of one (an
+    in-process one-rank NCCL group): ``run_captures_dp`` with the launch
+    counts set to 0 just before, then the command line's ``--seq-parallel
+    on`` as a subprocess.  The hand kernel must launch at least once per
+    chunk; the audio must agree with the plain run (< -55 dB: the
+    distributed scans add a zero-start local scan to a ramp correction, so
+    1-LSB differences are expected) and the twin (< -60 dB), and the
+    command line's WAV must equal the API run's byte for byte."""
+    from iq_to_audio_torch.parallel.dp_runner import CaptureJob, mesh_geometry, run_captures_dp
+
+    out = work / "seq_parallel.wav"
+    job = CaptureJob(in_path=capture, target_freqs=[CENTER + OFFSET], output_paths=[out],
+                     center_freq=CENTER)
+    chunk = mesh_geometry(SAMPLE_RATE, 12_500.0, 96_000.0, 1, 1 << 18)[3].chunk_size
+    chunks = -(-int(SECONDS * SAMPLE_RATE) // chunk)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run_captures_dp([job], world=1, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    audio, rate = read_wav(out)
+    audio = audio[:, 0]
+    plain_audio = read_wav(plain.output_paths[0])[0][:, 0]
+    n = min(audio.size, plain_audio.size)
+    err_plain = error_db(audio[:n], plain_audio[:n])
+    err_twin, err_twin_raw = twin_err_db(audio, head_iq(capture), OFFSET, "nfm", True, plain.mix_sign)
+    if (launches["poly_fir_il"] < chunks or rate != 48_000 or abs(audio.size - plain_audio.size) > 1
+            or not np.all(np.isfinite(audio))):
+        raise AssertionError(f"seq_parallel: {launches} launches for {chunks} chunks, "
+                             f"{audio.size} samples at {rate} Hz")
+    if not (err_plain < -55.0 and err_twin < -60.0):
+        raise AssertionError(f"seq_parallel: {err_plain:.1f} dB against the plain run, "
+                             f"{err_twin:.1f} dB against the twin")
+    cli_out = work / "seq_parallel_cli.wav"
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "iq_to_audio_torch", "--cli", "--in", str(capture),
+         "--fc", str(CENTER), "--ft", str(CENTER + OFFSET), "--out", str(cli_out),
+         "--seq-parallel", "on"],
+        capture_output=True, text=True, timeout=600, cwd=Path(__file__).resolve().parent,
+    )
+    cli_seconds = time.perf_counter() - t0
+    if run.returncode != 0 or not cli_out.exists():
+        raise AssertionError(f"seq_parallel cli: exit {run.returncode}: {run.stderr[-2000:]}")
+    cli_identical = cli_out.read_bytes() == out.read_bytes()
+    if not cli_identical or "sequence-parallel over 1 device(s)" not in run.stderr:
+        raise AssertionError(f"seq_parallel cli: WAV byte-identical {cli_identical}; "
+                             f"{run.stderr[-2000:]}")
+    row = {"phase": "seq_parallel", "world": 1, "chunk": chunk, "chunks": chunks,
+           "launches": launches, "realtime_factor": SECONDS / res.loop_seconds,
+           "loop_seconds": res.loop_seconds, "wall_seconds": wall,
+           "plain_loop_seconds": plain.loop_seconds, "err_vs_plain_db": err_plain,
+           "twin_err_db": err_twin, "twin_err_unquantised_db": err_twin_raw,
+           "byte_identical_to_plain": out.read_bytes() == plain.output_paths[0].read_bytes(),
+           "cli_seconds": cli_seconds, "cli_wav_byte_identical": cli_identical}
+    emit(row)
+    return row
+
+
+def check_multi_in(capture: Path, work: Path, plain) -> dict:
+    """Two ``--in`` without burst mode through the command line (in this
+    process): one card cannot host two ``dp`` rows, so the captures run one
+    after the other, each WAV tagged with its capture's stem and equal to
+    the plain run's byte for byte."""
+    from iq_to_audio_torch import cli as tcli
+
+    second = work / "again" / capture.name  # the same stem: the tags get an index
+    second.parent.mkdir()
+    os.link(capture, second)
+    out = work / "multi.wav"
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = tcli.main(["--cli", "--in", str(capture), "--in", str(second), "--fc", str(CENTER),
+                    "--ft", str(CENTER + OFFSET), "--out", str(out)])
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    outs = [work / f"multi_{capture.stem}{i}.wav" for i in (1, 2)]
+    identical = [p.exists() and p.read_bytes() == plain.output_paths[0].read_bytes() for p in outs]
+    if rc != 0 or not all(identical) or launches["poly_fir_il"] != 2 * plain.dispatched_chunks:
+        raise AssertionError(f"multi_in: exit {rc}, byte-identical {identical}, {launches}")
+    row = {"phase": "multi_in", "captures": 2, "outputs": [p.name for p in outs],
+           "byte_identical_to_plain": identical, "launches": launches, "seconds": seconds}
     emit(row)
     return row
 
@@ -1219,6 +1386,8 @@ def main() -> int:
         runs = check_modes_of_run(capture, work)
         check_stages(capture)
         check_cli(capture, work, runs["plain_bytes"])
+        sharded = check_seq_parallel(capture, work, runs["plain"])
+        check_multi_in(capture, work, runs["plain"])
         check_spectrum(capture)
         resident = check_resident()
         burst = check_burst(capture, work, runs, resident)
@@ -1237,6 +1406,7 @@ def main() -> int:
             shift_matmul_ms=chan1["shift_matmul_ms"], fft_bank_ms=chan1["fft_bank_ms"],
             formulations_ms=others,
             burst_launches={k: burst[k]["launches"]["poly_fir_il"] for k in ("cold", "warm")},
+            seq_parallel_launches=sharded["launches"]["poly_fir_il"],
         ),
         kernel_entry(
             "poly_fir_pair", "iq_to_audio_tpu/ops/pallas_ddc.py:313",

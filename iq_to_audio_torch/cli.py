@@ -1,22 +1,25 @@
 """Command-line front end of the port (``python -m iq_to_audio_torch``).
 
-Every flag of the JAX package's command line is parsed.  What one device
-needs runs: ``--cli`` with one to five ``--ft``, ``--demod`` (``none``
-included), ``--dump-iq``, ``--plot-stages``, ``--spectrum-png``,
-``--probe-only``, ``--preview``, ``--benchmark*``, ``--profile-dir``,
-``--checkpoint-secs``/``--resume``, and burst mode (``--burst-segments N``
+Every flag of the JAX package's command line is parsed.  What runs:
+``--cli`` with one to five ``--ft``, ``--demod`` (``none`` included),
+``--dump-iq``, ``--plot-stages``, ``--spectrum-png``, ``--probe-only``,
+``--preview``, ``--benchmark*``, ``--profile-dir``,
+``--checkpoint-secs``/``--resume``, burst mode (``--burst-segments N``
 above 1 with ``--burst-cpu-workers K``: the capture is split between the
 device stream and K host-CPU worker processes, :mod:`.pipeline.hetero`),
-for one ``--in`` or, one capture after the other, for several.  One flag is
-the port's own: ``--device`` (default ``cuda``; ``cpu`` runs each kernel's
-plain version), where the JAX package reads ``JAX_PLATFORMS``; the burst
-mode's CPU workers run on the CPU whatever it says.
+sequence parallelism (``--seq-parallel``: one capture sharded over one rank
+per device, :mod:`.parallel`), and several ``--in``: batched one capture
+per ``dp`` row of the mesh when the device count is a multiple of the
+capture count and the run is a plain demodulation, else one capture after
+the other.  One flag is the port's own: ``--device`` (default ``cuda``;
+``cpu`` runs each kernel's plain version, with ``IQ2A_CPU_RANKS`` ranks for
+the sharded paths), where the JAX package reads ``JAX_PLATFORMS``; the
+burst mode's CPU workers run on the CPU whatever it says.
 
 Flags whose module is not ported exit with status 2 and a message naming
 the flag and ``ROADMAP.md``; they never fall through to another path: the
-GUI (``--interactive``, or no ``--cli``), ``--audio-post*``, the
-``digital`` subcommand, ``--seq-parallel on`` and more than one ``--in``
-without burst mode.
+GUI (``--interactive``, or no ``--cli``), ``--audio-post*`` and the
+``digital`` subcommand.
 """
 
 from __future__ import annotations
@@ -95,8 +98,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("--in", dest="input_path", required=False, type=Path,
                         action="append", default=None,
-                        help="Input SDR++ baseband WAV file (repeat it with --burst-segments "
-                             "to process several captures one after the other).")
+                        help="Input SDR++ baseband WAV file (repeat to process several "
+                             "captures: batched over the devices when their count is a "
+                             "multiple of the capture count, else one after the other).")
     parser.add_argument("--ft", dest="target_freqs", type=positive_float, action="append",
                         default=None,
                         help="Target RF frequency in Hz. Supply up to five times to batch additional channels.")
@@ -210,8 +214,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Host-CPU worker subprocesses for --burst-segments (0 = device stream only).")
     parser.add_argument("--seq-parallel", dest="seq_parallel",
                         choices=["auto", "on", "off"], default="auto",
-                        help="Shard one capture across several devices (not ported: "
-                             "'on' is refused; auto and off run on one device).")
+                        help="Shard one capture across the devices, one rank per device "
+                             "(auto: when at least two are visible; on: always, failing "
+                             "loudly when the run cannot shard; off: never).  With "
+                             "--device cpu the ranks are IQ2A_CPU_RANKS (default 1).")
     parser.add_argument("--device", dest="device", default="cuda",
                         help="torch device of the run (default: cuda; there is no "
                              "fallback: without a card only --device cpu runs).")
@@ -288,12 +294,6 @@ def main(argv: list[str] | None = None) -> int:
         return _unported("--interactive", "the interactive GUI (interactive/)")
     if not args.cli and not args.benchmark:
         return _unported("--cli", "running without --cli launches the interactive GUI, which")
-    if args.seq_parallel == "on":
-        return _unported("--seq-parallel", "sequence parallelism over several devices (parallel/)")
-    if len(args.input_path or []) > 1 and args.burst_segments <= 1:
-        return _unported(
-            "--in", "more than one capture per run without --burst-segments (parallel/dp_runner.py)"
-        )
 
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
@@ -417,7 +417,10 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     if len(input_paths) > 1:
-        return _run_captures_in_turn(args, input_paths, frequencies, shared_kwargs)
+        return _run_multi_capture(args, input_paths, frequencies, shared_kwargs)
+    sp_rc = _maybe_run_seq_parallel(args, frequencies, shared_kwargs)
+    if sp_rc is not None:
+        return sp_rc
 
     LOG.info(
         "=== Processing %d target(s): %s ===",
@@ -484,30 +487,202 @@ def _burst_executor(args: argparse.Namespace):
     )
 
 
-def _run_captures_in_turn(
+def _plain_demod(args: argparse.Namespace) -> str | None:
+    """The run's demodulator when it is one the sharded step runs
+    (``ssb`` is the documented alias of ``usb``), else None."""
+    demod = "usb" if args.demod == "ssb" else args.demod
+    return demod if demod in {"nfm", "am", "usb", "lsb"} else None
+
+
+def _shardable(args: argparse.Namespace, frequencies: list[float]) -> bool:
+    """A plain demodulation the sharded runner can take: no probe, preview,
+    dump, stage, checkpoint or burst mode (an explicit burst request wins
+    over the mesh)."""
+    return bool(
+        frequencies
+        and args.burst_segments <= 1
+        and not args.probe_only
+        and args.preview_seconds is None
+        and args.dump_iq is None
+        and args.plot_stages is None
+        and not args.resume
+        and not args.checkpoint_secs
+        and _plain_demod(args) is not None
+    )
+
+
+def _run_dp(args: argparse.Namespace, jobs: list):
+    """:func:`.parallel.dp_runner.run_captures_dp` with the run's options."""
+    from .parallel.dp_runner import run_captures_dp
+
+    return run_captures_dp(
+        jobs,
+        bandwidth=args.bandwidth,
+        demod_mode=_plain_demod(args),
+        fs_ch_target=args.fs_ch,
+        deemph_us=args.deemph_us,
+        agc_enabled=args.agc_enabled,
+        iq_order=args.iq_order,
+        mix_sign_override=args.mix_sign,
+        device=args.device,
+        progress_sink=_make_sink(),
+    )
+
+
+def _maybe_run_seq_parallel(
+    args: argparse.Namespace,
+    frequencies: list[float],
+    shared_kwargs: dict,
+) -> int | None:
+    """Shard ONE capture over one rank per device (sequence parallelism):
+    :func:`.parallel.dp_runner.run_captures_dp` with a single job is the
+    pure seq-over-devices instance (dp = 1).  Engaged for plain demod runs
+    when ``--seq-parallel`` is ``on``, or ``auto`` with more than one
+    device.  Returns an exit code, or None to fall back to the serial
+    pipeline."""
+    if args.seq_parallel == "off":
+        return None
+    from .parallel.mesh import device_count
+
+    n_dev = device_count(args.device)
+    eligible = (
+        _shardable(args, frequencies)
+        and args.spectrum_png is None
+        and args.profile_dir is None
+    )
+    if args.seq_parallel == "auto" and n_dev < 2:
+        return None
+    if not eligible:
+        if args.seq_parallel == "on":
+            LOG.error(
+                "--seq-parallel on: this run cannot shard (sequence "
+                "parallelism supports plain nfm/am/usb/lsb demodulation "
+                "without probe/preview/dump/stage/checkpoint/burst modes)."
+            )
+            return 1
+        return None
+
+    from .parallel.dp_runner import CaptureJob
+
+    # serial-parity output naming: the per-channel paths the serial
+    # pipeline would write (shared --out hints get _<freq> suffixes when
+    # batching; defaults are audio_<FT>_48k.wav beside the input)
+    helper = ProcessingPipeline(_build_batched_config(args, frequencies, shared_kwargs))
+    paths = helper._channel_paths(list(frequencies), args.output_path)
+    for p in paths:
+        p.parent.mkdir(parents=True, exist_ok=True)
+    job = CaptureJob(
+        in_path=args.input_path,
+        target_freqs=list(frequencies),
+        output_paths=paths,
+        center_freq=args.center_freq,
+        input_format=args.input_format,
+        input_sample_rate=args.input_sample_rate,
+    )
+    LOG.info(
+        "=== Processing %d target(s): %s (sequence-parallel over %d device(s)) ===",
+        len(frequencies), "/".join(f"{f:.0f}" for f in frequencies), n_dev,
+    )
+    try:
+        res = _run_dp(args, [job])
+    except ProcessingCancelled:
+        LOG.info("Processing cancelled by user.")
+        return 0  # serial-path parity: cancel is a clean exit
+    except ValueError as exc:
+        if args.seq_parallel == "on":
+            return _die("Sequence-parallel run failed", exc, args.verbose)
+        LOG.info("Sequence-parallel execution unavailable (%s); running the serial pipeline.", exc)
+        return None
+    except Exception as exc:
+        return _die("Processing failed", exc, args.verbose)
+    for freq, peak in zip(frequencies, res.audio_peaks[0]):
+        if peak > 0:
+            print(f"[{int(round(freq))}] Audio peak level: {20.0 * math.log10(peak):.2f} dBFS")
+    return 0
+
+
+def _run_multi_capture(
     args: argparse.Namespace,
     paths: list[Path],
     frequencies: list[float],
     shared_kwargs: dict,
 ) -> int:
-    """Several ``--in`` with ``--burst-segments``: one burst run per
-    capture, one after the other, on one executor.  The shared ``--out``,
-    ``--dump-iq`` and ``--plot-stages`` hints get a per-capture tag (the
-    input's stem, made unique when two captures share a filename), so no
-    capture overwrites another's file.  A failed capture is reported and
-    the loop goes on; the exit status is then 1."""
+    """Several ``--in`` captures.
+
+    When the device count is a multiple of the capture count and the run is
+    a plain demodulation (no probe/preview/dump/stage/checkpoint/burst
+    modes), the captures batch through ONE sharded step, one per ``dp``
+    row (:mod:`.parallel.dp_runner`).  Anything else, or a geometry the
+    mesh refuses, runs them one after the other (:func:`_run_captures_in_turn`).
+    Outputs carry a per-capture tag: the input's stem, made unique when two
+    captures share a filename (``day1/cap.wav`` and ``day2/cap.wav`` must not
+    write to the same output)."""
+    from .parallel.mesh import device_count
+
     tags: list[str] = []
     for i, p in enumerate(paths):
         tag = p.stem
         if sum(1 for q in paths if q.stem == tag) > 1:
             tag = f"{tag}{i + 1}"
         tags.append(tag)
+    n_dev = device_count(args.device)
+    if _shardable(args, frequencies) and n_dev >= len(paths) and n_dev % len(paths) == 0:
+        from .parallel.dp_runner import CaptureJob
 
-    def _per_capture(base: Path | None, tag: str) -> Path | None:
-        if base is None:
-            return None
-        return base.with_name(f"{base.stem}_{tag}{base.suffix}")
+        jobs = [
+            CaptureJob(
+                in_path=p,
+                target_freqs=list(frequencies),
+                output_paths=[] if args.output_path is None else [_per_capture(args.output_path, tag)],
+                center_freq=args.center_freq,
+                input_format=args.input_format,
+                input_sample_rate=args.input_sample_rate,
+            )
+            for p, tag in zip(paths, tags)
+        ]
+        try:
+            res = _run_dp(args, jobs)
+        except ProcessingCancelled:
+            LOG.info("Processing cancelled by user.")
+            return 0
+        except ValueError as exc:
+            LOG.info(
+                "Data-parallel multi-capture unavailable (%s); processing captures "
+                "sequentially.", exc
+            )
+        except Exception as exc:
+            return _die("Processing failed", exc, args.verbose)
+        else:
+            for g, peaks in enumerate(res.audio_peaks):
+                for k, peak in enumerate(peaks):
+                    LOG.info(
+                        "[%s @ %.0f] audio peak %.2f dBFS", paths[g].name, frequencies[k],
+                        20.0 * math.log10(max(peak, 1e-9)),
+                    )
+            return 0
+    return _run_captures_in_turn(args, paths, tags, frequencies, shared_kwargs)
 
+
+def _per_capture(base: Path | None, tag: str) -> Path | None:
+    """A shared artifact hint with a per-capture suffix: every capture would
+    otherwise overwrite the previous one's file."""
+    if base is None:
+        return None
+    return base.with_name(f"{base.stem}_{tag}{base.suffix}")
+
+
+def _run_captures_in_turn(
+    args: argparse.Namespace,
+    paths: list[Path],
+    tags: list[str],
+    frequencies: list[float],
+    shared_kwargs: dict,
+) -> int:
+    """One run per capture, one after the other: through the serial
+    pipeline, or with ``--burst-segments`` through one burst executor.  The
+    shared ``--out``, ``--dump-iq`` and ``--plot-stages`` hints get the
+    capture's tag.  A failed capture is reported and the loop goes on; the
+    exit status is then 1."""
     rc = 0
     out_base, dump_base, plot_base = args.output_path, args.dump_iq, args.plot_stages
     hetero_ex = _burst_executor(args)
@@ -520,14 +695,18 @@ def _run_captures_in_turn(
             config = _build_batched_config(args, frequencies, shared_kwargs)
             LOG.info("=== Processing capture %s ===", p)
             try:
-                hetero_ex.run(config, progress_sink=_make_sink())
+                if hetero_ex is not None:
+                    hetero_ex.run(config, progress_sink=_make_sink())
+                else:
+                    ProcessingPipeline(config).run(progress_sink=_make_sink())
             except ProcessingCancelled:
                 LOG.info("Processing cancelled by user.")
                 return 0
             except Exception as exc:
                 rc = _die(f"Processing failed for {p}", exc, args.verbose)
     finally:
-        hetero_ex.close()
+        if hetero_ex is not None:
+            hetero_ex.close()
     return rc
 
 

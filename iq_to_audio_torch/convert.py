@@ -13,6 +13,15 @@ channelizers, the ``(2, L-1)`` pair tail of the ``fft`` channelizer, and a
 pass-through state (``phase`` and ``fir_tail`` only: no ``demod``, ``peak``
 or ``rs_tail``).  The output accumulators (int16 ``audio``, float32
 ``iq_r``/``iq_i``) go through :func:`accs_from_jax`.
+
+The JAX sharded step (``parallel/sharded.py`` there) carries one flat dict
+for the whole mesh: ``phase``, ``demod_prev_r``, ``demod_prev_i``,
+``deemph_y``, ``dc_x``, ``dc_y``, ``agc_gain`` of shape ``(C,)``,
+``rs_tail`` ``(C, T)``, and ``fir_tail`` ``(2(L-1),)``, or ``(G, 2(L-1))``
+with ``G`` captures.  Each rank of the port holds its ``dp`` row's share:
+the row's ``C/dp`` channels and its capture's tail.
+:func:`sharded_state_from_jax` cuts one row's share out of the JAX dict and
+:func:`sharded_state_to_jax` puts the rows together again.
 """
 
 from __future__ import annotations
@@ -57,4 +66,32 @@ def accs_from_jax(np_accs: dict, device) -> dict:
         if arr.dtype != want:
             raise TypeError(f"accumulator {name!r}: expected {want.__name__}, got {arr.dtype}")
         out[name] = torch.from_numpy(np.array(arr, copy=True)).to(device)
+    return out
+
+
+def sharded_state_from_jax(np_state: dict, *, dp: int, row: int, captures: int, device) -> dict:
+    """The share of ``dp`` row ``row`` of the JAX sharded step's state, as
+    tensors on ``device``."""
+    c_local = np.asarray(np_state["phase"]).shape[0] // dp
+    rows = slice(row * c_local, (row + 1) * c_local)
+    local = {}
+    for key, value in np_state.items():
+        arr = np.asarray(value)
+        if key == "fir_tail":
+            local[key] = arr[row] if captures > 1 else arr
+        else:
+            local[key] = arr[rows]
+    return state_from_jax(local, device)
+
+
+def sharded_state_to_jax(row_states: list[dict], *, captures: int) -> dict:
+    """The JAX sharded step's state from the shares of the ``dp`` rows, in
+    row order."""
+    rows = [state_to_jax(s) for s in row_states]
+    out = {}
+    for key in rows[0]:
+        if key == "fir_tail":
+            out[key] = np.stack([r[key] for r in rows]) if captures > 1 else rows[0][key]
+        else:
+            out[key] = np.concatenate([r[key] for r in rows])
     return out

@@ -177,6 +177,19 @@ class IQReader:
             self._fd.close()
             self._fd = None
 
+    def seek_frame(self, frame: int) -> None:
+        """Move a synchronous reader (``prefetch_depth=0``) to complex frame
+        ``frame`` of the payload (counted from ``start_frame``): the next
+        block starts there.  A sequence-parallel rank reads its own slice
+        of every chunk this way."""
+        if self._fd is None:
+            raise RuntimeError("IQReader has not been entered.")
+        if self._queue is not None:
+            raise RuntimeError("seek_frame needs a reader without prefetch")
+        skip = min(max(0, int(frame)) * self.input_format.bytes_per_frame, self._payload_size)
+        self._fd.seek(self._payload_offset + skip)
+        self._remaining = self._payload_size - skip
+
     # -- streaming ---------------------------------------------------------
 
     @property

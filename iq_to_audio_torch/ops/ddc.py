@@ -178,7 +178,8 @@ def lowrate_osc(phase0_fixed: torch.Tensor, inc_lo_fixed: torch.Tensor, m: int):
     """
     n = torch.arange(m, dtype=torch.int64, device=phase0_fixed.device)
     ph = (phase0_fixed[..., None] + inc_lo_fixed[..., None] * n) & MASK32
-    rad = torch.tensor(_RAD_PER_COUNT, dtype=torch.float32, device=ph.device)
+    # a fill, not a copy from the host: the call stays capturable in a CUDA graph
+    rad = ph.new_full((), _RAD_PER_COUNT, dtype=torch.float32)
     angle = ph.to(torch.float32) * rad
     return torch.cos(angle), torch.sin(angle)
 

@@ -121,13 +121,13 @@ def first_order_combine(e1, e2):
     return a1 * a2, a2 * b1 + b2
 
 
-def first_order_scan(a: torch.Tensor, b: torch.Tensor, y0):
-    """Evaluate ``y[n] = a[n]*y[n-1] + b[n]`` along the last axis.
+def first_order_prefix(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan of the recurrence elements along the last axis:
+    ``(cum_a, cum_b)`` with ``y[n] = cum_a[n]*y[-1] + cum_b[n]``.
 
-    Inclusive Hillis-Steele scan: after the round of stride ``d`` element
-    ``n`` holds the composition of elements ``n-2d+1 .. n``.  ``y0`` is the
-    carried ``y[-1]`` (the batch shape of ``a``/``b``).  Returns
-    ``(y, y_last)``.
+    Hillis-Steele: after the round of stride ``d`` element ``n`` holds the
+    composition of elements ``n-2d+1 .. n``.  The counterpart of the JAX
+    package's ``lax.associative_scan(first_order_combine, (a, b))``.
     """
     cum_a, cum_b = a, b
     n = a.shape[-1]
@@ -139,6 +139,15 @@ def first_order_scan(a: torch.Tensor, b: torch.Tensor, y0):
         cum_a = torch.cat([cum_a[..., :d], ca], dim=-1)
         cum_b = torch.cat([cum_b[..., :d], cb], dim=-1)
         d *= 2
+    return cum_a, cum_b
+
+
+def first_order_scan(a: torch.Tensor, b: torch.Tensor, y0):
+    """Evaluate ``y[n] = a[n]*y[n-1] + b[n]`` along the last axis through
+    :func:`first_order_prefix`.  ``y0`` is the carried ``y[-1]`` (the batch
+    shape of ``a``/``b``).  Returns ``(y, y_last)``.
+    """
+    cum_a, cum_b = first_order_prefix(a, b)
     y0 = torch.as_tensor(y0, dtype=torch.float32, device=b.device)
     y = cum_a * y0[..., None] + cum_b
     return y, y[..., -1]
@@ -165,7 +174,8 @@ def agc_coefficients(x: torch.Tensor, target: float, decay: float, eps: float = 
     valid = mag > eps32
     decay32 = np.float32(decay)
     keep = float(np.float32(1.0) - decay32)
-    pull = torch.tensor(decay32 * np.float32(target), dtype=torch.float32, device=x.device)
+    # a fill, not a copy from the host: the call stays capturable in a CUDA graph
+    pull = mag.new_full((), float(decay32 * np.float32(target)))
     a = torch.where(valid, keep, 1.0)
     b = torch.where(valid, pull / torch.clamp(mag, min=eps32), 0.0)
     return a, b

@@ -38,7 +38,7 @@ def measure_step_resident_msps(
     channels: int = 1,
     device: str | None = None,
     seconds_target: float = 1.0,
-    reps_cap: int = 2048,
+    graph_groups: int = 4,
 ) -> dict:
     """The full chunk step's resident-compute rate, in input Msps.
 
@@ -46,20 +46,25 @@ def measure_step_resident_msps(
     its real channelizer selection, at the flagship NFM geometry: taps,
     decimation, de-emphasis, 48 kHz out) over int16 input that already lies
     on the device, so reads, uploads, downloads and file writes stay off
-    the clock; what remains is the step's kernels and the host's launches
-    of them.  ``channels > 1`` batches carriers spread over the band.
+    the clock.  ``channels > 1`` batches carriers spread over the band.
 
-    The JAX package guards its measurement against a compiler that could
-    hoist or drop work inside one executable.  Eager torch elides nothing,
-    so two guards remain: the input varies over the loop (three
-    different resident groups in turn, the stream state carried through),
-    and the accumulator is consumed once at the end (a small reduction
-    brought to the host, inside the timed span).  On a CUDA device the span
-    is timed with CUDA events around the ``reps`` groups and the final
-    consumption; on the CPU with the host clock.
+    On a CUDA device ``graph_groups`` dispatch groups (three resident
+    inputs in turn, the stream state carried from group to group) are
+    captured in one CUDA graph and the graph is replayed for about
+    ``seconds_target`` between two CUDA events: the device's clock, with no
+    Python launches in the window (the JAX package times one compiled
+    ``fori_loop``).  Every replay starts from the state the capture started
+    from.  The result also holds the rate implied by the profiler's
+    device-busy time of one replay (``busy_msps``).  A step that cannot be
+    captured is timed by the profiler's device-busy time instead
+    (``"method": "profiler_busy"``).  On the CPU the host clock times
+    ``graph_groups`` eager groups (``"host_clock"``).  See
+    :func:`~iq_to_audio_torch.utils.device_clock.resident_rate`.
 
-    Returns ``{"msps", "x_realtime", "reps", "super_chunks", "chunk_size",
-    "channels", "channelizer", "elapsed_s", "device"}``.
+    Returns ``{"msps", "x_realtime", "method", "calls", "replays",
+    "super_chunks", "chunk_size", "channels", "channelizer", "elapsed_s",
+    "device"}``, plus ``busy_msps``, ``busy_source`` and
+    ``kernel_events`` from a graph.
     """
     import torch
 
@@ -68,6 +73,7 @@ def measure_step_resident_msps(
     from ..ops.nco import nco_increment_fixed
     from ..ops.resample import ResamplePlan, design_resampler_kernel
     from ..utils.device import resolve_device
+    from ..utils.device_clock import resident_rate
     from .filters import compute_decimation, design_channel_filter
     from .step import build_chunk_step
 
@@ -109,48 +115,36 @@ def measure_step_resident_msps(
         for _ in range(3)
     ]
     rs_offset = 0 if rs_plan.identity else rs_plan.chunk_offset(0)
-    on_card = dev.type == "cuda"
+    accs = step.init_accs()
+    box = {"state": step.init_state()}
 
-    def timed(reps: int) -> float:
-        state, accs = step.init_state(), step.init_accs()
-        if on_card:
-            torch.cuda.synchronize(dev)
-            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-        t0 = time.perf_counter()
-        for r in range(reps):
-            slot = (r % groups_per_window) * S
-            state = step.fn_super(state, accs, raws[r % len(raws)], rs_offset, slot)
-        # one final consumption of the accumulator and the state
-        int(accs["audio"][..., -1].to(torch.int64).sum() + state["phase"].sum())
-        if on_card:
-            stop.record()
-            stop.synchronize()
-            return start.elapsed_time(stop) / 1e3
-        return time.perf_counter() - t0
+    def group(r: int) -> None:
+        slot = (r % groups_per_window) * S
+        box["state"] = step.fn_super(box["state"], accs, raws[r % len(raws)], rs_offset, slot)
 
-    per_rep = S * ddc_plan.chunk_size
-    timed(1)  # warm-up: kernel build, allocator, cuFFT/cuDNN plans
-    rough = 2 * per_rep / max(timed(2), 1e-6)
-    reps = int(min(max(rough * seconds_target / per_rep, 2), reps_cap))
-    elapsed = timed(reps)
-    msps = reps * per_rep / max(elapsed, 1e-9) / 1e6
+    probe = resident_rate(
+        group, S * ddc_plan.chunk_size, dev, calls=graph_groups,
+        seconds_target=seconds_target, kernel_name="poly_fir_kernel", busy=dev.type == "cuda",
+    )
+    # one consumption of the accumulator and the carried state
+    if not np.isfinite(float(accs["audio"][..., -1].to(torch.float32).sum()
+                             + box["state"]["peak"].sum())):
+        raise RuntimeError("resident step: non-finite output")
+    msps = probe["msps"]
     out = {
-        "msps": msps,
+        **probe,
         "x_realtime": msps * 1e6 / sample_rate,
-        "reps": reps,
         "super_chunks": S,
         "chunk_size": ddc_plan.chunk_size,
         "channels": len(incs),
         "channelizer": step.channelizer,
-        "elapsed_s": elapsed,
-        "device": str(dev),
     }
     LOG.info(
         "full-step resident: %.0f Msps = %.1fx realtime of the %.1f MS/s workload "
-        "(%d reps x %d-chunk group, chunk %d, %d channel(s), channelizer %s)",
-        msps, out["x_realtime"], sample_rate / 1e6, reps, S, ddc_plan.chunk_size,
-        len(incs), step.channelizer,
+        "(%s, %d groups x %d replays of %d chunk(s), chunk %d, %d channel(s), "
+        "channelizer %s)",
+        msps, out["x_realtime"], sample_rate / 1e6, probe["method"], graph_groups,
+        probe["replays"], S, ddc_plan.chunk_size, len(incs), step.channelizer,
     )
     return out
 

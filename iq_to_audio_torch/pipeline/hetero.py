@@ -63,6 +63,7 @@ from ..ops.poly_fir import build_poly_kernel
 from ..ops.resample import ResamplePlan
 from ..ref.chain import choose_mix_sign
 from ..utils.device import resolve_device
+from ..utils.device_clock import resident_rate
 from ..utils.freq import detect_center_frequency
 from .config import ProcessingConfig
 from .filters import compute_decimation, design_channel_filter
@@ -88,6 +89,13 @@ _OUTPUT_RATE = 48_000
 #: the probe replaces it before the first claim is sized, and a CPU device
 #: measures its rate on its first real claim.
 _DEFAULT_DEVICE_MSPS = "100"
+#: channelizer calls captured in the resident probe's CUDA graph
+_PROBE_GRAPH_CALLS = 4
+#: device seconds of graph replays the probe times: short before the device
+#: stream's first claim, which waits for it while the CPU workers already
+#: drain the queue; longer for :meth:`HeteroExecutor.measure_resident_compute`
+_PROBE_SECONDS_CLAIM = 0.005
+_PROBE_SECONDS_BENCH = 0.05
 
 
 @dataclass
@@ -341,6 +349,9 @@ class HeteroExecutor:
         )
         #: cached one-off resident-compute measurement (input Msps)
         self._measured_msps: float | None = None
+        #: the last resident-compute probe: its rate, method (``cuda_graph``,
+        #: ``profiler_busy`` or ``host_clock``), calls, replays and geometry
+        self.last_compute_probe: dict = {}
         #: per-run scheduling telemetry, for logs and benches
         self.last_stats: dict = {}
         #: most recent wire-health probe measurements (bandwidths in B/s),
@@ -350,6 +361,15 @@ class HeteroExecutor:
         #: seconds), so a change of the link's rate within a campaign stays
         #: visible instead of being collapsed into one snapshot
         self.wire_probe_log: list[dict] = []
+
+    def reset_rates(self) -> None:
+        """Forget observed side throughputs (e.g. after a run whose device
+        timing absorbed a one-off cost such as a connection toll), and the
+        slow-start claim floor grown alongside them."""
+        self._rates["device"] = None
+        self._rates["cpu"] = None
+        self._device_take_secs = 0.0
+        self._device_rate_estimated = False
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -537,7 +557,7 @@ class HeteroExecutor:
             return None
         if self._measured_msps is not None:
             return self._measured_msps
-        msps = self._measure_compute_msps(num_taps, decimation, None, dev)
+        msps = self._measure_compute_msps(num_taps, decimation, None, dev, bench=True)
         if msps is not None:
             self._measured_msps = msps
             if not os.environ.get("IQ2A_DEVICE_MSPS"):
@@ -546,17 +566,23 @@ class HeteroExecutor:
 
     def _measure_compute_msps(
         self, num_taps: int, decimation: int, should_abort, device: torch.device,
+        *, bench: bool = False,
     ) -> float | None:
         """Measurement core shared by the prior-replacement path and the
-        bench-facing :meth:`measure_resident_compute`: the production
-        channelizer, ``ops/ddc.py::ddc_apply_il`` with the hand kernel's
-        taps (``ops/poly_fir.py::poly_fir_il``), over one resident chunk of
-        ``IQ2A_MSPS_PROBE_CHUNK`` samples.  Returns input Msps, or None on
-        abort; on a CPU device also None on failure (the prior stays), on a
-        CUDA device a failure raises."""
+        bench-facing :meth:`measure_resident_compute` (``bench``: a longer
+        window, and the rate the profiler's device-busy time implies beside
+        it): the production channelizer, ``ops/ddc.py::ddc_apply_il`` with
+        the hand kernel's taps (``ops/poly_fir.py::poly_fir_il``), over one
+        resident chunk of ``IQ2A_MSPS_PROBE_CHUNK`` samples, timed by
+        :func:`~iq_to_audio_torch.utils.device_clock.resident_rate`.  The
+        whole result, with the probe's wall seconds, lands in
+        :attr:`last_compute_probe`.  Returns input Msps, or None on abort;
+        on a CPU device also None on failure (the prior stays), on a CUDA
+        device a failure raises."""
         if should_abort is not None and should_abort():
             return None
         on_card = device.type == "cuda"
+        t0 = time.perf_counter()
         try:
             L = max(int(num_taps), 2)
             chunk_target = int(
@@ -572,53 +598,37 @@ class HeteroExecutor:
             poly_w = torch.from_numpy(
                 build_poly_kernel(kernel_il, 2 * plan.decimation)
             ).to(device)
-            x = torch.from_numpy(
-                rng.uniform(-1.0, 1.0, 2 * plan.chunk_size).astype(np.float32)
-            ).to(device)
+            # drawn where it is used: no host draw and upload of the chunk
+            # before the device stream's first claim
+            gen = torch.Generator(device=device).manual_seed(0)
+            x = torch.empty(2 * plan.chunk_size, dtype=torch.float32, device=device)
+            x.uniform_(-1.0, 1.0, generator=gen)
             tail = torch.zeros(2 * (L - 1), dtype=torch.float32, device=device)
             phase0 = torch.zeros(1, dtype=torch.int64, device=device)
             inc_lo = torch.full((1,), 123_456_789, dtype=torch.int64, device=device)
 
-            def _timed(reps: int) -> float:
-                # One untimed call first (the kernel's load, its tap split,
-                # the allocator).  The timed window then holds `reps`
-                # back-to-back ddc_apply_il calls on input already on the
-                # device: the tail concatenation, the hand kernel and the
-                # mixer of each, and no upload or fetch.  Eager torch drops
-                # and hoists nothing, so the JAX package's guards against
-                # its compiler (a loop-varying input, a max over every
-                # output) have nothing to guard against here.  On the card
-                # CUDA events bound the window; on the CPU the host clock.
+            def call(_i: int) -> None:
                 ddc_apply_il(plan, poly_w, x, tail, phase0, inc_lo)
-                if on_card:
-                    torch.cuda.synchronize(device)
-                    start = torch.cuda.Event(enable_timing=True)
-                    stop = torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    for _ in range(reps):
-                        ddc_apply_il(plan, poly_w, x, tail, phase0, inc_lo)
-                    stop.record()
-                    stop.synchronize()
-                    return start.elapsed_time(stop) / 1e3
-                t0 = time.perf_counter()
-                for _ in range(reps):
-                    ddc_apply_il(plan, poly_w, x, tail, phase0, inc_lo)
-                return time.perf_counter() - t0
 
-            rough_elapsed = _timed(2)
-            rough = 2 * plan.chunk_size / max(rough_elapsed, 1e-6)
-            # size the real pass for ~50 ms of work: events time the device
-            # alone, with no fetch latency to amortise, and the device
-            # stream's first claim waits for this probe while the CPU
-            # workers already drain the queue
-            reps = int(min(max(0.05 * rough / plan.chunk_size, 2), 2048))
+            # CUDA graph replays on the card (the device's clock, no Python
+            # launches in the window), the host clock on the CPU
             if should_abort is not None and should_abort():
                 return None
-            msps = reps * plan.chunk_size / _timed(reps) / 1e6
+            probe = resident_rate(
+                call, plan.chunk_size, device, calls=_PROBE_GRAPH_CALLS if on_card else 2,
+                seconds_target=_PROBE_SECONDS_BENCH if bench else _PROBE_SECONDS_CLAIM,
+                kernel_name="poly_fir_kernel", busy=bench,
+            )
+            self.last_compute_probe = {**probe, "chunk_size": plan.chunk_size, "taps": L,
+                                       "decimation": plan.decimation,
+                                       "wall_s": time.perf_counter() - t0}
+            msps = probe["msps"]
             LOG.info(
                 "hetero: resident-compute probe measured %.0f Msps "
-                "(%d taps, decim %d, %d reps, %s) — replaces the %.0f Msps prior",
-                msps, L, plan.decimation, reps, device, self.device_compute_msps,
+                "(%d taps, decim %d, %d calls x %d replays, %s, %s, %.3f s) — replaces "
+                "the %.0f Msps prior",
+                msps, L, plan.decimation, probe["calls"], probe["replays"], probe["method"],
+                device, self.last_compute_probe["wall_s"], self.device_compute_msps,
             )
             return msps
         except Exception as exc:

@@ -165,9 +165,6 @@ UNPORTED = [
     (["--cli", "--audio-post", "d", "--audio-post-mode", "static", "--audio-post-overwrite"],
      "--audio-post"),
     (["digital", "--audio-dir", "some_dir"], "digital"),
-    (["--cli", "--in", "x.wav", "--in", "y.wav", "--ft", "1e6", "--burst-segments", "1"], "--in"),
-    (["--cli", "--in", "x.wav", "--ft", "1e6", "--seq-parallel", "on"], "--seq-parallel"),
-    (["--cli", "--in", "x.wav", "--in", "y.wav", "--ft", "1e6"], "--in"),
 ]
 
 
@@ -202,6 +199,40 @@ def test_seq_parallel_auto_runs_on_one_device(capture, tmp_path):
     rc = tcli.main([*_base(capture), "--ft", str(CENTER + OFFSET), "--out", str(out),
                     "--seq-parallel", "auto", "--burst-segments", "1"])
     assert rc == 0 and out.exists()
+
+
+@pytest.mark.parametrize("burst", [[], ["--burst-segments", "1"]], ids=["plain", "burst_1"])
+def test_two_captures_in_turn(capture, tmp_path, monkeypatch, burst):
+    """Two ``--in`` on one device (one rank cannot host two ``dp`` rows):
+    one capture after the other through the serial pipeline, each WAV
+    tagged with its capture's stem as the JAX package tags it
+    (``<out>_<stem>.wav``) and byte-identical to a run of that capture
+    alone."""
+    monkeypatch.delenv("IQ2A_CPU_RANKS", raising=False)
+    second = tmp_path / "other" / capture.name.replace("_cap", "_two")
+    second.parent.mkdir()
+    iq = make_nfm_iq(FS, 0.6, -OFFSET, seed=9)
+    write_stereo_wav(second, np.column_stack([iq.real, iq.imag]) * 0.6, int(FS))
+    ft = ["--ft", str(CENTER + OFFSET), "--mix-sign", "1"]
+    out = tmp_path / "out.wav"
+    rc = tcli.main(["--cli", "--device", "cpu", "--in", str(capture), "--in", str(second),
+                    "--chunk", "32768", *ft, "--out", str(out), *burst])
+    assert rc == 0
+    assert sorted(p.name for p in tmp_path.glob("out_*.wav")) == sorted(
+        [f"out_{capture.stem}.wav", f"out_{second.stem}.wav"])
+    for cap in (capture, second):
+        alone = tmp_path / f"alone_{cap.stem}.wav"
+        assert tcli.main([*_base(cap), *ft, "--out", str(alone)]) == 0
+        assert (tmp_path / f"out_{cap.stem}.wav").read_bytes() == alone.read_bytes()
+
+
+def test_seq_parallel_on_two_cpu_ranks(capture, tmp_path, monkeypatch):
+    """``--seq-parallel on`` with two CPU ranks: exit 0, and the serial
+    run's default naming (audio_<FT>_48k.wav beside the input)."""
+    monkeypatch.setenv("IQ2A_CPU_RANKS", "2")
+    rc = tcli.main([*_base(capture), "--ft", str(CENTER + OFFSET), "--seq-parallel", "on"])
+    assert rc == 0
+    assert (capture.parent / f"audio_{int(CENTER + OFFSET)}_48k.wav").exists()
 
 
 def test_no_card_and_no_device_flag_fails(capture, tmp_path, caplog):

@@ -507,14 +507,99 @@ def test_analysis_backends_on_card(backend):
 
 
 def test_resident_rate_on_card():
+    """The full step's resident rate from CUDA-graph replays: the wrapper
+    counts the two warm-up groups and the captured ones (a replay launches
+    no wrapper), the profiler sees the hand kernel once per chunk of a
+    replay, and the graph's rate is within 0.5-1.05x of the rate its
+    device-busy time implies."""
     from iq_to_audio_torch.pipeline.benchmark import measure_step_resident_msps
 
     _card()
     before = tpoly.poly_fir_il.launches
     out = measure_step_resident_msps(250_000.0, target_chunk=65_536, seconds_target=0.2)
     assert out["device"].startswith("cuda") and out["channelizer"] == "conv"
-    assert out["msps"] > 0
-    assert tpoly.poly_fir_il.launches - before == (out["reps"] + 3) * out["super_chunks"]
+    assert out["method"] == "cuda_graph" and out["msps"] > 0
+    groups = out["calls"]
+    assert tpoly.poly_fir_il.launches - before == (groups + 2) * out["super_chunks"]
+    assert out["kernel_events"] == groups * out["super_chunks"]
+    assert 0.5 <= out["msps"] / out["busy_msps"] <= 1.05
+
+
+def test_hetero_resident_probe_on_card():
+    """The burst executor's probe of the hand kernel times graph replays,
+    within 0.5-1.05x of its device-busy bound."""
+    from iq_to_audio_torch.pipeline.hetero import HeteroExecutor
+
+    _card()
+    ex = HeteroExecutor(cpu_workers=0)
+    msps = ex.measure_resident_compute(1601, 26)
+    probe = ex.last_compute_probe
+    assert probe["method"] == "cuda_graph" and msps == probe["msps"] > 0
+    assert probe["kernel_events"] == probe["calls"]
+    assert 0.5 <= probe["msps"] / probe["busy_msps"] <= 1.05
+
+
+def test_sharded_step_world_of_one_on_card():
+    """A world of one (an in-process one-rank NCCL group): the sharded step
+    launches the hand kernel once per chunk and its audio equals the plain
+    single-device step's within the distributed scans' rounding."""
+    import torch.distributed as dist
+
+    from iq_to_audio_torch.demod import create_decoder
+    from iq_to_audio_torch.ops.resample import ResamplePlan, design_resampler_kernel
+    from iq_to_audio_torch.parallel.launch import run_world
+    from iq_to_audio_torch.pipeline.step import build_chunk_step
+
+    dev = _card()
+    taps = design_channel_filter(FS, 12_500.0, 26)
+    plan = tddc.DDCPlan(len(taps), 26, 26 * 20_000)
+    rs_plan = ResamplePlan.create(FS / 26, 48_000.0, plan.out_size)
+    incs = [nco_increment_fixed(25_000.0, FS)]
+    pair = bandpass_kernel(taps, incs)
+    rs_np = design_resampler_kernel(rs_plan.up, rs_plan.down)
+    rng = np.random.default_rng(3)
+    raws = [rng.integers(-8000, 8000, 2 * plan.chunk_size, dtype=np.int16) for _ in range(3)]
+    offsets = [rs_plan.chunk_offset(k * plan.out_size) for k in range(3)]
+    alpha = math.exp(-1.0 / (FS / 26 * 300e-6))
+    before = tpoly.poly_fir_il.launches
+    (sharded,) = run_world(
+        _sharded_rank, 1, "cuda", (plan, rs_plan, incs, interleave_kernel(pair, "iq"), rs_np,
+                                   raws, offsets, alpha),
+    )
+    assert tpoly.poly_fir_il.launches - before == len(raws)
+    assert not dist.is_initialized()
+    decoder = create_decoder("nfm", deemph_us=300.0, agc_enabled=True)
+    decoder.setup(FS / 26)
+    step = build_chunk_step(
+        ddc_plan=plan, rs_plan=rs_plan, ddc_kernel_np=pair, rs_kernel_np=rs_np, incs_fixed=incs,
+        codec="pcm_s16le", iq_order="iq", decoder=decoder, device=dev, super_chunks=1,
+    )
+    state, accs = step.init_state(), step.init_accs()
+    cap = step.audio_capacity
+    for k, (raw, off) in enumerate(zip(raws, offsets)):
+        slot = k % step.acc_chunks
+        state = step.fn(state, accs, torch.from_numpy(raw).to(dev), off, slot)
+        count = rs_plan.out_count(k * plan.out_size, plan.out_size)
+        want = accs["audio"][:, slot * cap : slot * cap + count].cpu().numpy() / 32767.0
+        got = np.round(np.clip(sharded[k][:, :count], -0.99, 0.99) * 32767.0) / 32767.0
+        assert _err_db(got, want) < -60.0, k
+
+
+def _sharded_rank(ctx, plan, rs_plan, incs, kernel_il, rs_np, raws, offsets, alpha):
+    from iq_to_audio_torch.parallel.mesh import make_mesh
+    from iq_to_audio_torch.parallel.sharded import build_sharded_step, local_operands
+
+    mesh = make_mesh(ctx.world, device="cuda")
+    fn, init_state = build_sharded_step(mesh, ddc_plan=plan, rs_plan=rs_plan, num_channels=1,
+                                        codec="pcm_s16le", deemph_alpha=alpha)
+    state = init_state()
+    inc_t, poly_w = local_operands(mesh, incs, kernel_il, plan.decimation)
+    rs_k = torch.from_numpy(rs_np).to(ctx.device)
+    out = []
+    for raw, off in zip(raws, offsets):
+        state, audio = fn(state, torch.from_numpy(raw).to(ctx.device), off, inc_t, poly_w, rs_k)
+        out.append(audio.cpu().numpy())
+    return out
 
 
 def test_burst_on_card(tmp_path):
@@ -567,3 +652,18 @@ def test_burst_on_card_raises_a_failed_kernel(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="failed to load"):
         HeteroExecutor(cpu_workers=0).measure_resident_compute(1601, 26)
     assert not (tmp_path / "o.wav").exists()
+
+
+def test_uncapturable_work_is_timed_by_the_profiler():
+    """Work that synchronises with the host cannot be captured in a CUDA
+    graph: the rate then comes from the profiler's device-busy time and
+    says so, and the card goes on to capture the next work."""
+    from iq_to_audio_torch.utils.device_clock import resident_rate
+
+    dev = _card()
+    x = torch.ones(1 << 20, device=dev)
+    out = resident_rate(lambda _i: float(x.sum().item()), x.numel(), dev, calls=2,
+                        seconds_target=0.01)
+    assert out["method"] == "profiler_busy" and out["msps"] > 0
+    again = resident_rate(lambda _i: x.mul_(1.0), x.numel(), dev, calls=2, seconds_target=0.01)
+    assert again["method"] == "cuda_graph" and again["msps"] > 0

@@ -300,6 +300,74 @@ def test_resident_compute_measurement_runs(monkeypatch):
     assert ex.measure_resident_compute(33, 4, device="cpu") == first
 
 
+def test_reset_rates_forgets_measured_throughputs():
+    """``reset_rates`` (the JAX package's ``HeteroExecutor.reset_rates``)
+    drops both sides' rates, the slow-start claim floor and the estimate
+    flag; the measured compute rate stays."""
+    ex = HeteroExecutor(cpu_workers=0)
+    now = time.monotonic()
+    ex._rates["device"] = (12.0, now)
+    ex._rates["cpu"] = (3.0, now)
+    ex._device_take_secs = 0.5
+    ex._device_rate_estimated = True
+    ex._measured_msps = 123.0
+    ex.reset_rates()
+    assert ex._rates == {"device": None, "cpu": None}
+    assert ex._device_take_secs == 0.0 and not ex._device_rate_estimated
+    assert ex._measured_msps == 123.0
+
+
+def test_resident_probes_keep_the_host_clock_off_the_card(monkeypatch):
+    """On a CPU device neither resident probe captures a CUDA graph or
+    opens the profiler: both time eager calls on the host clock."""
+    from iq_to_audio_torch.pipeline.benchmark import measure_step_resident_msps
+    from iq_to_audio_torch.utils import device_clock
+
+    def _never(*a, **k):
+        raise AssertionError("a CUDA-graph or profiler path ran on the CPU")
+
+    monkeypatch.setattr(device_clock, "capture_graph", _never)
+    monkeypatch.setattr(device_clock, "device_busy", _never)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _never)
+    monkeypatch.setenv("IQ2A_MSPS_PROBE_CHUNK", "65536")
+    ex = HeteroExecutor(cpu_workers=0)
+    msps = ex._measure_compute_msps(33, 4, None, torch.device("cpu"), bench=True)
+    probe = ex.last_compute_probe
+    assert msps == probe["msps"] > 0 and probe["method"] == "host_clock"
+    assert probe["calls"] == 2 and probe["device"] == "cpu"
+    out = measure_step_resident_msps(250_000.0, target_chunk=65_536, device="cpu",
+                                     graph_groups=2)
+    assert out["method"] == "host_clock" and out["msps"] > 0 and out["calls"] == 2
+    assert "busy_msps" not in out
+
+
+@pytest.mark.parametrize("failure", ["capture", "warm_up"])
+def test_resident_rate_names_its_fallback(monkeypatch, failure):
+    """Work that runs but cannot be captured is timed by the profiler's
+    device-busy time and says so (``"method": "profiler_busy"``); a failure
+    of the work itself (a kernel that does not load) is raised, not
+    reported as a capture failure.  The card is faked: only the dispatch
+    of ``resident_rate`` is under test."""
+    from iq_to_audio_torch.utils import device_clock
+
+    def capture(*a, **k):
+        if failure == "capture":
+            raise device_clock.CaptureFailed("operation not permitted when stream is capturing")
+        raise RuntimeError("poly_fir: the kernel library failed to load")
+
+    monkeypatch.setattr(device_clock, "capture_graph", capture)
+    monkeypatch.setattr(device_clock, "device_busy", lambda run, device, name="": (0.002, 0))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    calls = []
+    args = (calls.append, 1_000_000, torch.device("cuda"))
+    if failure == "capture":
+        out = device_clock.resident_rate(*args, calls=4, seconds_target=0.01)
+        assert out["method"] == "profiler_busy" and out["msps"] == pytest.approx(2000.0)
+    else:
+        with pytest.raises(RuntimeError, match="failed to load"):
+            device_clock.resident_rate(*args, calls=4, seconds_target=0.01)
+
+
 def test_measure_resident_compute_is_none_on_the_cpu(monkeypatch):
     monkeypatch.delenv("IQ2A_MEASURE_MSPS", raising=False)
     ex = HeteroExecutor(cpu_workers=0)
