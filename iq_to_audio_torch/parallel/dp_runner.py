@@ -302,7 +302,6 @@ def run_captures_dp(
     agc_enabled: bool = True,
     iq_order: str = "iq",
     mix_sign_override: int | None = None,
-    mesh=None,
     world: int | None = None,
     device: str = "cuda",
     target_chunk: int = 1 << 18,
@@ -314,11 +313,9 @@ def run_captures_dp(
     Every capture must share sample rate and codec; every job must list
     the same number of targets (the dp rows run one program).
 
-    Without ``mesh`` this starts ``world`` ranks (default
-    :func:`~.mesh.device_count` of ``device``, a multiple of the capture
-    count) on a ``dp = len(jobs)`` mesh and returns rank 0's result.  With
-    ``mesh``, the caller's world is already running: every rank calls this
-    with its mesh, and rank 0 reports to its ``progress_sink``.
+    This starts ``world`` ranks (default :func:`~.mesh.device_count` of
+    ``device``, a multiple of the capture count) on a ``dp = len(jobs)``
+    mesh and returns rank 0's result.
 
     ``progress_sink`` receives one "chunks" phase and may request
     cooperative cancellation through its cancel callback (the serial
@@ -331,15 +328,6 @@ def run_captures_dp(
         mix_sign_override=mix_sign_override, target_chunk=target_chunk,
     )
     G = len(jobs)
-    if mesh is not None:
-        dp, seq = mesh.shape
-        run = plan_captures(jobs, dp=dp, seq=seq, device=mesh.device_type, **options)
-        with _progress(run, progress_sink if dist.get_rank() == 0 else None) as (report, cancel):
-            out = _run_rank(mesh, run, report, cancel.is_set)
-        if out == _CANCELLED:
-            raise ProcessingCancelled("Processing cancelled by request.")
-        return out
-
     kind = resolve_device(device).type
     n_dev = world or device_count(kind)
     if G < 1 or n_dev % G != 0:

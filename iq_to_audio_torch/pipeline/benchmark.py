@@ -63,8 +63,7 @@ def measure_step_resident_msps(
 
     Returns ``{"msps", "x_realtime", "method", "calls", "replays",
     "super_chunks", "chunk_size", "channels", "channelizer", "elapsed_s",
-    "device"}``, plus ``busy_msps``, ``busy_source`` and
-    ``kernel_events`` from a graph.
+    "device"}``, plus ``busy_msps`` and ``kernel_events`` from a graph.
     """
     import torch
 

@@ -118,10 +118,10 @@ def resident_rate(
     about ``seconds_target`` of device time (``"method": "cuda_graph"``);
     with ``busy``, also the rate the profiler's device-busy time of one
     replay implies (``busy_msps``) and the device events of that replay
-    whose name holds ``kernel_name`` (``kernel_events``; where the profiler
-    sees none, both come from the same calls run eagerly,
-    ``"busy_source": "eager"``).  Where capture fails, the
-    profiler's busy time of ``calls`` eager calls (``"profiler_busy"``).
+    whose name holds ``kernel_name`` (``kernel_events``); a replay in which
+    the profiler sees no device time, or no such event, raises.  Where
+    capture fails, the profiler's busy time of ``calls`` eager calls
+    (``"profiler_busy"``).
     On the CPU, the host clock around ``calls`` eager calls, after one
     (``"host_clock"``).
     """
@@ -161,12 +161,10 @@ def resident_rate(
                 graph.replay()
 
         busy_s, hits = device_busy(replay, device, kernel_name)
-        source = "graph"
         if busy_s is None or (kernel_name and hits == 0):
-            # the profiler did not see the graph's kernels: the same calls
-            # run eagerly launch the same kernels
-            busy_s, hits = device_busy(eager, device, kernel_name)
-            source = "eager"
-        out.update(busy_source=source, kernel_events=hits,
-                   busy_msps=None if busy_s is None else samples / busy_s / 1e6)
+            raise RuntimeError(
+                f"resident rate: the profiler saw {busy_s} s of device time and "
+                f"{hits} '{kernel_name}' events in a graph replay"
+            )
+        out.update(kernel_events=hits, busy_msps=samples / busy_s / 1e6)
     return out

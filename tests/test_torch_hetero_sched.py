@@ -368,6 +368,28 @@ def test_resident_rate_names_its_fallback(monkeypatch, failure):
             device_clock.resident_rate(*args, calls=4, seconds_target=0.01)
 
 
+@pytest.mark.parametrize("seen", [(None, 0), (0.002, 0)], ids=["no_device_time", "no_kernel"])
+def test_unseen_replay_raises(monkeypatch, seen):
+    """The busy bound comes from the profiled graph replay alone: a replay
+    in which the profiler sees no device time, or not the named kernel, is
+    an error, not a cue to profile the calls eagerly.  The card is faked."""
+    from iq_to_audio_torch.utils import device_clock
+
+    profiled = []
+
+    def busy(run, device, name=""):
+        profiled.append(run)
+        return seen
+
+    monkeypatch.setattr(device_clock, "capture_graph", lambda *a, **k: (object(), object()))
+    monkeypatch.setattr(device_clock, "replay_seconds", lambda graph, stream, n: 0.001 * n)
+    monkeypatch.setattr(device_clock, "device_busy", busy)
+    with pytest.raises(RuntimeError, match="graph replay"):
+        device_clock.resident_rate(lambda _i: None, 1_000_000, torch.device("cuda"), calls=4,
+                                   seconds_target=0.01, kernel_name="poly_fir_kernel", busy=True)
+    assert len(profiled) == 1
+
+
 def test_measure_resident_compute_is_none_on_the_cpu(monkeypatch):
     monkeypatch.delenv("IQ2A_MEASURE_MSPS", raising=False)
     ex = HeteroExecutor(cpu_workers=0)
