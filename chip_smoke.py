@@ -51,8 +51,16 @@ script exits non-zero:
    in-process one-rank NCCL group: at least one hand-kernel launch per
    chunk, audio < -55 dB against the plain run and < -60 dB against the
    twin, and ``--seq-parallel on`` as a subprocess, its WAV byte-identical
-   to the API run's), and two ``--in`` without burst mode (run in turn on
-   one card, each WAV byte-identical to the plain run's);
+   to the API run's), two ``--in`` without burst mode (run in turn on
+   one card, each WAV byte-identical to the plain run's), and the
+   interactive session in this process on the headless toolkit
+   (``check_interactive``: the GUI's 2 s snapshot at nfft 262,144 on the
+   card against the host's FFT, the window when matplotlib imports, the
+   preview at one and five targets through ``PreviewWorker`` with one
+   hand-kernel launch per chunk and WAVs byte-identical to ``run_preview``,
+   the confirmed config byte-identical to the plain run, and the
+   audio-post worker byte-identical to ``--audio-post`` streaming in a
+   subprocess);
 7. the spectral analysis at its defaults (the card) against the host's
    float64 FFT, and ``measure_step_resident_msps`` at one and five channels
    (CUDA-graph replays, within 0.5-1.05x of the rate the profiler's
@@ -1292,6 +1300,221 @@ def check_multi_in(capture: Path, work: Path, plain) -> dict:
     return row
 
 
+#: the GUI's defaults: snapshot seconds and FFT size, and the preview's length
+GUI_SNAPSHOT_SECONDS = 2.0
+GUI_NFFT = 262_144
+GUI_PREVIEW_SECONDS = 2.0
+
+
+def check_interactive(capture: Path, work: Path, plain, plain_bytes: bytes,
+                      five_offsets) -> dict:
+    """The interactive session in this process on the headless toolkit
+    (``IQ2A_QT=headless``), on the flagship capture at the GUI's defaults:
+
+    * ``gather_snapshot(device="cuda")`` over 2 s at nfft 262,144: device
+      allocations > 0, and the PSD within 0.3 dB of ``backend="numpy"`` on
+      the same samples over the bins within 60 dB of the peak;
+    * the window on ``device="cuda"`` (when matplotlib imports): the capture
+      loaded (its snapshot on the card), the target set through the targets
+      panel; without matplotlib the session state builds the configs;
+    * ``PreviewWorker`` at one and at five targets (the tap-block loop),
+      each with the launch counts set to 0 just before: ``poly_fir_il``
+      once per dispatched chunk, and the preview WAVs byte-identical to a
+      direct ``run_preview`` of the same config;
+    * the confirmed config through ``ProcessingPipeline``, its parameters
+      the plain run's: byte-identical to the plain run's WAV;
+    * ``AudioPostWorker`` on that WAV against ``--audio-post DIR
+      --audio-post-stream-mb 0.25`` as a subprocess (the streaming engine):
+      byte-identical outputs."""
+    from dataclasses import fields, replace
+
+    os.environ["IQ2A_QT"] = "headless"
+    from iq_to_audio_torch.interactive import _qt
+    from iq_to_audio_torch.interactive.state import InteractiveState
+    from iq_to_audio_torch.interactive.workers import (
+        AudioPostWorker,
+        PreviewWorker,
+        gather_snapshot,
+    )
+    from iq_to_audio_torch.io.formats import resolve_input_format
+    from iq_to_audio_torch.pipeline.preview import run_preview
+    from iq_to_audio_torch.post.squelch import AudioPostOptions, SquelchConfig
+
+    if not _qt.HEADLESS:
+        raise AssertionError("interactive: IQ2A_QT=headless did not select the headless toolkit")
+    row: dict = {"phase": "interactive", "snapshot_seconds": GUI_SNAPSHOT_SECONDS,
+                 "nfft": GUI_NFFT, "preview_seconds": GUI_PREVIEW_SECONDS}
+
+    # snapshot on the card against the host's float64 FFT of the same samples
+    spec, _ = resolve_input_format(capture, requested=None)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    t0 = time.perf_counter()
+    snap = gather_snapshot(capture, spec, SAMPLE_RATE, GUI_SNAPSHOT_SECONDS, nfft=GUI_NFFT,
+                           device="cuda")
+    row["snapshot_wall_s"] = time.perf_counter() - t0
+    row["snapshot_device_allocations"] = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+    _, want, _, frames = streaming_waterfall(iter([snap.retained]), SAMPLE_RATE, nfft=GUI_NFFT,
+                                             backend="numpy")
+    hot = want > want.max() - 60.0
+    row["snapshot_frames"] = snap.frames
+    row["snapshot_max_db_diff"] = float(np.abs(snap.psd_db[hot] - want[hot]).max())
+    if (row["snapshot_device_allocations"] <= 0 or frames != snap.frames
+            or snap.retained.size != int(GUI_SNAPSHOT_SECONDS * SAMPLE_RATE)
+            or not row["snapshot_max_db_diff"] < 0.3):
+        raise AssertionError(f"interactive snapshot: {row}")
+
+    base_kwargs = {"device": "cuda", "bandwidth": 12_500.0, "demod_mode": "nfm"}
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as exc:
+        row["window"] = False
+        row["window_import_error"] = str(exc)
+        win = None
+        state = InteractiveState(base_kwargs=dict(base_kwargs))
+        state.input_path = capture
+        state.center_freq, state.center_freq_source = CENTER, "filename"
+    else:
+        from iq_to_audio_torch.interactive.app import InteractiveWindow
+
+        row["window"] = True
+        if _qt.QApplication.instance() is None:
+            _qt.QApplication([])
+        win = InteractiveWindow(base_kwargs=base_kwargs, snapshot_seconds=GUI_SNAPSHOT_SECONDS)
+        t0 = time.perf_counter()
+        win._load_file(capture)
+        row["window_load_wall_s"] = time.perf_counter() - t0
+        state = win.state
+        if (win._snapshot is None or win._snapshot.frames != snap.frames
+                or state.center_freq != CENTER or win._snapshot_worker._kw["device"] != "cuda"):
+            raise AssertionError(f"interactive window: snapshot {win._snapshot is not None}, "
+                                 f"center {state.center_freq}")
+
+    def set_targets(offsets) -> None:
+        state.clear_targets()
+        for off in offsets:
+            state.add_target(CENTER + off)
+        if win is not None:
+            win.targets_panel.refresh()
+            win.targets_panel.changed.emit()
+            if not win.status_panel.preview_btn.isEnabled():
+                raise AssertionError("interactive: preview not enabled with a target")
+
+    def preview(offsets, tag: str) -> None:
+        set_targets(offsets)
+        got: list = []
+        if win is not None:
+            done = win._preview_done
+
+            def capture_results(results):
+                got.extend(results)
+                done(results)
+
+            win._preview_done = capture_results  # connected by _start_preview
+            reset_counts()
+            t0 = time.perf_counter()
+            win._start_preview()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            del win._preview_done
+        else:
+            worker = PreviewWorker(state.build_configs(), GUI_PREVIEW_SECONDS)
+            worker.signals.finished.connect(got.extend)
+            reset_counts()
+            t0 = time.perf_counter()
+            worker.run()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+        if len(got) != 1:
+            raise AssertionError(f"interactive preview {tag}: {len(got)} results")
+        cfg, result, path = got[0]
+        if cfg.device != "cuda" or launches["poly_fir_il"] != result.dispatched_chunks \
+                or result.dispatched_chunks <= 0:
+            raise AssertionError(f"interactive preview {tag}: {launches} launches for "
+                                 f"{result.dispatched_chunks} chunks on {cfg.device}")
+        direct_dir = work / f"direct_preview_{tag}"
+        run_preview(replace(cfg, output_path=direct_dir / f"audio_{int(cfg.target_freq)}_48k.wav"),
+                    GUI_PREVIEW_SECONDS)
+        gui_files = sorted(Path(path).parent.glob(f"audio_{int(cfg.target_freq)}_48k_preview*.wav"))
+        identical = [(direct_dir / p.name).read_bytes() == p.read_bytes() for p in gui_files]
+        if len(gui_files) != len(offsets) or not all(identical):
+            raise AssertionError(f"interactive preview {tag}: {len(gui_files)} files, "
+                                 f"byte-identical to run_preview {identical}")
+        for p in gui_files:
+            p.unlink()
+        row[f"preview_{tag}"] = {"targets": len(offsets), "wall_s": wall,
+                                 "dispatched_chunks": result.dispatched_chunks,
+                                 "launches": launches, "byte_identical_to_run_preview": identical}
+
+    preview([OFFSET], "1")
+    preview(list(five_offsets), "5")
+
+    # the confirmed config, with the plain run's parameters
+    set_targets([OFFSET])
+    if win is not None:
+        win._confirm_run()
+        configs = win.result.configs
+    else:
+        configs = state.build_configs()
+    (cfg,) = configs
+    # the plain run's config (run_path): only the centre's source may differ
+    plain_cfg = ProcessingConfig(in_path=capture, target_freq=CENTER + OFFSET, center_freq=CENTER,
+                                 demod_mode="nfm", agc_enabled=True, device="cuda")
+    differ = sorted(f.name for f in fields(ProcessingConfig)
+                    if getattr(cfg, f.name) != getattr(plain_cfg, f.name)
+                    and f.name != "center_freq_source")
+    if differ:
+        raise AssertionError(f"interactive confirmed config differs from the plain run's: {differ}")
+    confirmed = replace(cfg, output_path=work / "gui_confirmed.wav")
+    reset_counts()
+    result = ProcessingPipeline(confirmed).run()
+    launches = read_counts()
+    confirmed_bytes = result.output_paths[0].read_bytes()
+    if launches["poly_fir_il"] != result.dispatched_chunks or confirmed_bytes != plain_bytes:
+        raise AssertionError(f"interactive confirmed run: {launches} launches for "
+                             f"{result.dispatched_chunks} chunks, byte-identical to the plain "
+                             f"run {confirmed_bytes == plain_bytes}")
+    row["confirmed"] = {"dispatched_chunks": result.dispatched_chunks, "launches": launches,
+                        "loop_seconds": result.loop_seconds,
+                        "plain_loop_seconds": plain.loop_seconds,
+                        "byte_identical_to_plain": True}
+
+    # audio post: the worker (in memory) against the command line (streaming)
+    dirs = {tag: work / f"post_{tag}" for tag in ("worker", "cli")}
+    for d in dirs.values():
+        d.mkdir()
+        os.link(result.output_paths[0], d / "confirmed.wav")
+    summaries: list = []
+    worker = AudioPostWorker([dirs["worker"] / "confirmed.wav"], AudioPostOptions(config=SquelchConfig()))
+    worker.signals.finished.connect(summaries.append)
+    t0 = time.perf_counter()
+    worker.run()
+    worker_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    post = subprocess.run(
+        [sys.executable, "-m", "iq_to_audio_torch", "--audio-post", str(dirs["cli"]),
+         "--audio-post-stream-mb", "0.25"],
+        capture_output=True, text=True, timeout=600, cwd=Path(__file__).resolve().parent,
+    )
+    cli_wall = time.perf_counter() - t0
+    outs = [d / "confirmed-cleaned.wav" for d in dirs.values()]
+    if (post.returncode != 0 or len(summaries) != 1 or summaries[0].failed
+            or not all(p.exists() for p in outs)):
+        raise AssertionError(f"interactive audio post: exit {post.returncode}, "
+                             f"{post.stderr[-2000:]}")
+    identical = outs[0].read_bytes() == outs[1].read_bytes()
+    if not identical:
+        raise AssertionError("interactive audio post: worker and --audio-post outputs differ")
+    res = summaries[0].results[0]
+    row["audio_post"] = {"worker_wall_s": worker_wall, "cli_stream_wall_s": cli_wall,
+                         "byte_identical": identical, "retained_ratio": res.retained_ratio,
+                         "bytes_in": res.bytes_in, "bytes_out": res.bytes_out}
+    if win is not None:
+        win.close()
+    emit(row)
+    return row
+
+
 def check_profile(capture: Path, work: Path, plain_bytes: bytes) -> dict:
     """A run with ``profile_dir``: the audio must be the plain run's, and
     the trace must hold one device-kernel event of the hand kernel for each
@@ -1387,6 +1610,7 @@ def main() -> int:
         check_cli(capture, work, runs["plain_bytes"])
         sharded = check_seq_parallel(capture, work, runs["plain"])
         check_multi_in(capture, work, runs["plain"])
+        gui = check_interactive(capture, work, runs["plain"], runs["plain_bytes"], five)
         check_spectrum(capture)
         resident = check_resident()
         burst = check_burst(capture, work, runs, resident)
@@ -1406,6 +1630,10 @@ def main() -> int:
             formulations_ms=others,
             burst_launches={k: burst[k]["launches"]["poly_fir_il"] for k in ("cold", "warm")},
             seq_parallel_launches=sharded["launches"]["poly_fir_il"],
+            interactive_launches={
+                key: gui[key]["launches"]["poly_fir_il"]
+                for key in ("preview_1", "preview_5", "confirmed")
+            },
         ),
         kernel_entry(
             "poly_fir_pair", "iq_to_audio_tpu/ops/pallas_ddc.py:313",

@@ -16,10 +16,14 @@ the other.  One flag is the port's own: ``--device`` (default ``cuda``;
 the sharded paths), where the JAX package reads ``JAX_PLATFORMS``; the
 burst mode's CPU workers run on the CPU whatever it says.
 
-Flags whose module is not ported exit with status 2 and a message naming
-the flag and ``ROADMAP.md``; they never fall through to another path: the
-GUI (``--interactive``, or no ``--cli``), ``--audio-post*`` and the
-``digital`` subcommand.
+The front ends of the JAX command line run too, with its exit codes and
+messages: ``--audio-post*`` (batch squelch of finished WAVs, host numpy,
+:mod:`.post.squelch`), the ``digital`` subcommand (a decoder in the backend
+container, :mod:`.post.docker_backend`), and the GUI (``--interactive``, or
+no ``--cli``): the window's snapshot runs on ``--device``, and its confirmed
+configs run through the serial pipeline (or burst mode) here.  Without
+PySide6 the GUI runs only under ``IQ2A_QT=headless``; without matplotlib,
+no ``--cli`` falls back to terminal mode.
 """
 
 from __future__ import annotations
@@ -34,12 +38,18 @@ from . import __version__
 from .io.formats import parse_user_format
 from .pipeline.benchmark import run_benchmark
 from .pipeline.config import ProcessingConfig
-from .pipeline.pipeline import ProcessingCancelled, ProcessingPipeline
+from .pipeline.pipeline import ProcessingCancelled, ProcessingPipeline, ProcessingResult
 from .pipeline.preview import run_preview
 from .pipeline.progress import TqdmProgressSink
+from .post.digital import DEFAULT_DECODER_KEY, DIGITAL_DECODERS, get_decoder
+from .post.squelch import (
+    AudioPostOptions,
+    SquelchConfig,
+    gather_audio_targets,
+    process_audio_batch,
+)
 
 LOG = logging.getLogger("iq_to_audio_torch")
-
 
 
 def positive_float(value: str) -> float:
@@ -63,30 +73,81 @@ def _die(what: str, exc: Exception, verbose: bool) -> int:
     return 1
 
 
-def _unported(flag: str, what: str) -> int:
-    """Exit status 2 for a flag whose module the port does not carry."""
-    print(
-        f"iq-to-audio-torch: {flag}: {what} is not ported to the PyTorch package "
-        "(see ROADMAP.md); run it with the JAX package.",
-        file=sys.stderr,
-    )
-    return 2
+DIGITAL_DECODER_KEYS: tuple[str, ...] = tuple(d.key for d in DIGITAL_DECODERS)
 
 
 def _add_digital_subcommand(parser: argparse.ArgumentParser) -> None:
     sub = parser.add_subparsers(dest="subcommand", metavar="command")
     digital = sub.add_parser(
         "digital",
-        help="Run a digital decoder inside the backend container (not ported).",
+        help="Run a digital decoder inside the backend container.",
+        description=(
+            "Bind-mounts a directory of exported audio into the "
+            "iq-to-audio backend container and runs a decoder preset "
+            "(e.g. DSD-FME), or an explicit command, over it."
+        ),
     )
     digital.add_argument("--audio-dir", type=Path, required=True,
                          help="Directory of exported audio to mount inside the container.")
-    digital.add_argument("--decoder", default=None, help="Decoder preset to run.")
+    digital.add_argument("--decoder", choices=DIGITAL_DECODER_KEYS, default=DEFAULT_DECODER_KEY,
+                         help="Decoder preset to run (default: %(default)s).")
     digital.add_argument("--image", default=None, help="Override the backend Docker image.")
     digital.add_argument("--no-pull", dest="pull", action="store_false", default=True,
                          help="Never pull the backend image; fail if it is missing locally.")
     digital.add_argument("decoder_args", nargs=argparse.REMAINDER,
                          help="Explicit container command (prefix with -- to pass flags).")
+
+
+def _digital_command_tokens(args: argparse.Namespace) -> tuple[str, ...]:
+    """The container command: an explicit trailing command wins, otherwise
+    the selected preset's default.  Raises ValueError on unusable input."""
+    tokens = list(getattr(args, "decoder_args", None) or [])
+    if tokens[:1] == ["--"]:
+        tokens = tokens[1:]
+    if tokens:
+        return tuple(tokens)
+    try:
+        preset = get_decoder(args.decoder)
+    except KeyError as exc:
+        raise ValueError(f"Unsupported decoder preset: {args.decoder}") from exc
+    if not preset.default_command:
+        raise ValueError("No command specified for backend container.")
+    return preset.default_command
+
+
+def _existing_dir(path: Path) -> Path:
+    if not path.exists():
+        raise ValueError(f"Audio directory does not exist: {path}")
+    if not path.is_dir():
+        raise ValueError(f"Audio path is not a directory: {path}")
+    return path
+
+
+def run_digital_command(args: argparse.Namespace) -> int:
+    """``iq-to-audio-torch digital …``: one linear flow, every user error
+    funneled through ValueError/DockerBackendError into a single exit path."""
+    from .post import docker_backend as db
+
+    try:
+        command = _digital_command_tokens(args)
+        launch = db.DockerLaunchRequest(
+            command=command,
+            audio_dir=_existing_dir(args.audio_dir),
+            decoder_key=args.decoder,
+            pull_if_missing=bool(args.pull),
+        )
+        backend = db.DockerBackend(
+            config=db.DockerBackendConfig(image=args.image or db.DEFAULT_IMAGE)
+        )
+        backend.ensure_connection()
+        LOG.info("Backend decoder '%s': %s", args.decoder, " ".join(command))
+        backend.run_and_stream(
+            launch, log_callback=lambda text: print(text, end="", flush=True)
+        )
+    except (ValueError, db.DockerBackendError) as exc:
+        LOG.error("%s", exc)
+        return 1
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -232,6 +293,82 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+# --audio-post-* flag -> SquelchConfig field plumbing, declaratively
+_SQUELCH_FLAG_FIELDS = {
+    "method": "audio_post_mode",
+    "manual_noise_floor_db": "audio_post_noise_floor",
+    "noise_floor_percentile": "audio_post_percentile",
+    "threshold_margin_db": "audio_post_threshold",
+    "trim_silence": "audio_post_trim",
+    "trim_lead_seconds": "audio_post_lead",
+    "trim_trail_seconds": "audio_post_trail",
+}
+
+
+def _post_options(args: argparse.Namespace) -> AudioPostOptions:
+    fields = {dst: getattr(args, src) for dst, src in _SQUELCH_FLAG_FIELDS.items()}
+    fields["auto_noise_floor"] = args.audio_post_noise_floor is None
+    return AudioPostOptions(
+        config=SquelchConfig(**fields),
+        overwrite=args.audio_post_overwrite,
+        cleaned_suffix=args.audio_post_suffix,
+        stream_threshold_bytes=(
+            int(args.audio_post_stream_mb * 1024 * 1024)
+            if args.audio_post_stream_mb is not None else None
+        ),
+    )
+
+
+def _run_audio_post(args: argparse.Namespace) -> int:
+    post_options = _post_options(args)
+    try:
+        post_targets = gather_audio_targets(args.audio_post_path, post_options)
+    except Exception as exc:
+        return _die("Unable to enumerate audio targets", exc, args.verbose)
+    if not post_targets:
+        LOG.error("No audio files found at %s.", args.audio_post_path)
+        return 1
+    naming = (
+        "overwrite"
+        if post_options.overwrite
+        else f"suffix '{post_options.cleaned_suffix}'"
+    )
+    LOG.info(
+        "Audio post-processing %d file(s) via %s squelch (%s).",
+        len(post_targets),
+        post_options.config.method,
+        naming,
+    )
+
+    def _progress(completed: int, total: int, current: Path) -> None:
+        if total > 0:
+            pct = 100.0 * min(max(completed, 0), total) / total
+            LOG.info(" [%6.2f%%] %s", pct, current)
+        else:
+            LOG.info("Processing %s", current)
+
+    summary = process_audio_batch(post_targets, post_options, progress_cb=_progress)
+    for item in summary.results:
+        LOG.info(
+            "%s -> %s | %.2fs -> %.2fs | %.1f%% retained | floor %.1f dB "
+            "| threshold %.1f dB",
+            item.input_path, item.output_path, item.duration_in,
+            item.duration_out, item.retained_ratio * 100.0,
+            item.noise_floor_db, item.threshold_db,
+        )
+    if summary.errors:
+        LOG.error("Audio post-processing failed on %d file(s).", summary.failed)
+        for path, error in summary.errors:
+            LOG.error(" - %s: %s", path, error)
+        return 1
+    LOG.info(
+        "Audio post-processing complete: delta-size %+d bytes, delta-duration %+0.2f s.",
+        summary.aggregate_size_delta(),
+        summary.aggregate_duration_delta(),
+    )
+    return 0
+
+
 def _render_capture_spectrum(
     args: argparse.Namespace,
     input_fmt: tuple[str | None, str | None, str | None],
@@ -276,7 +413,11 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
 
     if getattr(args, "subcommand", None) == "digital":
-        return _unported("digital", "the digital-decoder backend (post/)")
+        logging.basicConfig(
+            level=logging.DEBUG if getattr(args, "verbose", False) else logging.INFO,
+            format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+        )
+        return run_digital_command(args)
 
     if args.cli and args.interactive:
         parser.error("--cli cannot be combined with --interactive.")
@@ -284,21 +425,18 @@ def main(argv: list[str] | None = None) -> int:
         parser.error("--audio-post cannot be combined with --interactive.")
     if args.audio_post_path and args.benchmark:
         parser.error("--audio-post cannot be combined with --benchmark.")
+    if args.audio_post_path and not 0.0 <= args.audio_post_percentile <= 1.0:
+        parser.error("--audio-post-noise-percentile must be between 0.0 and 1.0.")
     if args.benchmark and args.interactive:
         parser.error("--benchmark cannot be combined with --interactive.")
-
-    # flags whose module is not ported: refuse before anything runs
-    if args.audio_post_path:
-        return _unported("--audio-post", "audio post-processing (post/)")
-    if args.interactive:
-        return _unported("--interactive", "the interactive GUI (interactive/)")
-    if not args.cli and not args.benchmark:
-        return _unported("--cli", "running without --cli launches the interactive GUI, which")
 
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
+
+    if args.audio_post_path:
+        return _run_audio_post(args)
 
     frequencies: list[float] = list(args.target_freqs or [])
     # keep the list for the multi-capture loop, the first path everywhere else
@@ -354,15 +492,15 @@ def main(argv: list[str] | None = None) -> int:
         "input_container": input_fmt[1],
         "input_format_source": input_fmt[2],
     }
+    base_kwargs = {
+        **shared_kwargs,
+        "target_freq": frequencies[0] if frequencies else 0.0,
+        "output_path": args.output_path,
+        "dump_iq_path": args.dump_iq,
+        "plot_stages_path": args.plot_stages,
+    }
 
     if args.benchmark:
-        bench_kwargs = {
-            **shared_kwargs,
-            "target_freq": frequencies[0] if frequencies else 0.0,
-            "output_path": args.output_path,
-            "dump_iq_path": args.dump_iq,
-            "plot_stages_path": args.plot_stages,
-        }
         try:
             results: dict = {}
             rc = run_benchmark(
@@ -371,7 +509,7 @@ def main(argv: list[str] | None = None) -> int:
                 freq_offset=args.benchmark_offset,
                 center_freq=args.center_freq,
                 target_freq=frequencies[0] if frequencies else None,
-                base_kwargs=bench_kwargs,
+                base_kwargs=base_kwargs,
                 channels=args.benchmark_channels,
                 results_out=results,
             )
@@ -384,86 +522,154 @@ def main(argv: list[str] | None = None) -> int:
         )
         return rc
 
-    if args.input_path is None:
-        parser.error("--in is required in CLI mode.")
-    if not frequencies and not args.probe_only and not args.spectrum_png:
-        parser.error("Provide at least one --ft target frequency in CLI mode.")
+    progress_sink = None
+    configs: list[ProcessingConfig] = []
+    launch_gui = args.interactive or not args.cli
 
-    if args.spectrum_png:
+    if launch_gui:
         try:
-            _render_capture_spectrum(args, input_fmt)
-        except Exception as exc:
-            return _die("Spectrum rendering failed", exc, args.verbose)
-        if not frequencies and not args.probe_only:
-            return 0  # spectrum-only invocation
-
-    config = _build_batched_config(args, frequencies, shared_kwargs)
-    if args.preview_seconds is not None:
-        LOG.info(
-            "=== Previewing %d target(s): %s ===",
-            max(1, len(frequencies)),
-            "/".join(f"{f:.0f}" for f in frequencies) or "(center)",
-        )
-        try:
-            _, preview_path = run_preview(
-                config, args.preview_seconds, progress_sink=_make_sink()
-            )
-        except ProcessingCancelled:
-            LOG.info("Preview cancelled by user.")
-            return 0
-        except Exception as exc:
-            return _die("Preview failed", exc, args.verbose)
-        LOG.info("Preview written to %s", preview_path)
-        return 0
-
-    if len(input_paths) > 1:
-        return _run_multi_capture(args, input_paths, frequencies, shared_kwargs)
-    sp_rc = _maybe_run_seq_parallel(args, frequencies, shared_kwargs)
-    if sp_rc is not None:
-        return sp_rc
-
-    LOG.info(
-        "=== Processing %d target(s): %s ===",
-        max(1, len(frequencies)),
-        "/".join(f"{f:.0f}" for f in frequencies) or "(probe)",
-    )
-    hetero_ex = _burst_executor(args)
-    try:
-        if hetero_ex is not None:
-            result = hetero_ex.run(config, progress_sink=_make_sink())
+            from .interactive.app import launch_interactive_session
+        except ImportError as exc:
+            if args.interactive:
+                LOG.error("Interactive mode unavailable: %s", exc)
+                return 1
+            LOG.info("Interactive GUI unavailable (%s); falling back to CLI mode.", exc)
+            launch_gui = False
         else:
-            result = ProcessingPipeline(config).run(progress_sink=_make_sink())
+            try:
+                session = launch_interactive_session(
+                    input_path=args.input_path,
+                    base_kwargs={**base_kwargs, "target_freqs": list(frequencies)},
+                    snapshot_seconds=args.interactive_seconds,
+                )
+            except KeyboardInterrupt:
+                LOG.info("Interactive session cancelled.")
+                return 0
+            except Exception as exc:
+                return _die("Interactive session failed", exc, args.verbose)
+            configs = list(session.configs)
+            progress_sink = session.progress_sink
+            if session.burst_segments and not args.burst_segments:
+                # the GUI's Channel-panel burst setting applies unless the
+                # command line already pinned one
+                args.burst_segments = session.burst_segments
+
+    if launch_gui:
+        if args.preview_seconds is not None:
+            LOG.warning(
+                "--preview is ignored in interactive mode; use the GUI preview button instead."
+            )
+    else:
+        if args.input_path is None:
+            parser.error("--in is required in CLI mode.")
+        if not frequencies and not args.probe_only and not args.spectrum_png:
+            parser.error("Provide at least one --ft target frequency in CLI mode.")
+        if args.spectrum_png:
+            try:
+                _render_capture_spectrum(args, input_fmt)
+            except Exception as exc:
+                return _die("Spectrum rendering failed", exc, args.verbose)
+            if not frequencies and not args.probe_only:
+                return 0  # spectrum-only invocation
+        if args.preview_seconds is not None:
+            return _run_cli_preview(args, frequencies, shared_kwargs)
+        if len(input_paths) > 1:
+            return _run_multi_capture(args, input_paths, frequencies, shared_kwargs)
+        sp_rc = _maybe_run_seq_parallel(args, frequencies, shared_kwargs)
+        if sp_rc is not None:
+            return sp_rc
+        configs = [_build_batched_config(args, frequencies, shared_kwargs)]
+
+    if not configs:
+        LOG.info("No target frequencies to process.")
+        return 0
+    return _run_configs(args, configs, progress_sink)
+
+
+def _run_cli_preview(
+    args: argparse.Namespace, frequencies: list[float], shared_kwargs: dict
+) -> int:
+    """``--preview SECONDS`` in CLI mode: render the first seconds and exit."""
+    config = _build_batched_config(args, frequencies, shared_kwargs)
+    LOG.info(
+        "=== Previewing %d target(s): %s ===",
+        max(1, len(frequencies)),
+        "/".join(f"{f:.0f}" for f in frequencies) or "(center)",
+    )
+    try:
+        _, preview_path = run_preview(
+            config, args.preview_seconds, progress_sink=_make_sink()
+        )
     except ProcessingCancelled:
-        LOG.info("Processing cancelled by user.")
+        LOG.info("Preview cancelled by user.")
         return 0
     except Exception as exc:
-        return _die("Processing failed", exc, args.verbose)
+        return _die("Preview failed", exc, args.verbose)
+    LOG.info("Preview written to %s", preview_path)
+    return 0
+
+
+def _run_configs(args: argparse.Namespace, configs: list[ProcessingConfig], progress_sink) -> int:
+    """Run each config through the serial pipeline (or one burst executor),
+    then print the probe or the peak levels.  The first config reports to
+    the GUI session's sink when something still observes it."""
+    results: list[tuple[ProcessingConfig, ProcessingResult]] = []
+    hetero_ex = _burst_executor(args)
+    try:
+        for index, config in enumerate(configs, start=1):
+            freq_list = [f for f in config.all_target_freqs() if f > 0]
+            LOG.info(
+                "=== Processing %d target(s): %s (%d/%d) ===",
+                max(1, len(freq_list)),
+                "/".join(f"{f:.0f}" for f in freq_list) or "(probe)",
+                index,
+                len(configs),
+            )
+            use_session_sink = (
+                index == 1
+                and progress_sink is not None
+                and getattr(progress_sink, "is_live", True)
+            )
+            sink = progress_sink if use_session_sink else _make_sink()
+            try:
+                if hetero_ex is not None:
+                    result = hetero_ex.run(config, progress_sink=sink)
+                else:
+                    result = ProcessingPipeline(config).run(progress_sink=sink)
+            except ProcessingCancelled:
+                LOG.info("Processing cancelled by user.")
+                return 0
+            except Exception as exc:
+                return _die("Processing failed", exc, args.verbose)
+            results.append((config, result))
     finally:
         if hetero_ex is not None:
             hetero_ex.close()
 
-    if args.probe_only:
-        info = result.sample_rate_probe
-        tag = int(round(result.target_freq))
-        print(
-            f"[{tag}] Sample rate: {info.value:.2f} Hz "
-            f"(header={info.header}, wave={info.wave}, override={info.override})"
-        )
-        print(
-            f"[{tag}] Center frequency: {result.center_freq:.0f} Hz, "
-            f"target: {result.target_freq:.0f} Hz, offset: {result.freq_offset:.0f} Hz"
-        )
-        print(
-            f"[{tag}] Channel decimation: {result.decimation} "
-            f"-> {result.fs_channel:.2f} Hz, mixer sign {result.mix_sign}"
-        )
-        return 0
-    mode = (config.demod_mode or "").lower()
-    for freq, peak in zip(frequencies, result.audio_peaks or [result.audio_peak]):
-        if peak > 0:
-            peak_db = 20.0 * math.log10(peak)
-            what = "IQ slice peak magnitude" if mode == "none" else "Audio peak level"
-            print(f"[{int(round(freq))}] {what}: {peak_db:.2f} dBFS")
+    for config, result in results:
+        if args.probe_only:
+            info = result.sample_rate_probe
+            tag = int(round(result.target_freq))
+            print(
+                f"[{tag}] Sample rate: {info.value:.2f} Hz "
+                f"(header={info.header}, wave={info.wave}, override={info.override})"
+            )
+            print(
+                f"[{tag}] Center frequency: {result.center_freq:.0f} Hz, "
+                f"target: {result.target_freq:.0f} Hz, offset: {result.freq_offset:.0f} Hz"
+            )
+            print(
+                f"[{tag}] Channel decimation: {result.decimation} "
+                f"-> {result.fs_channel:.2f} Hz, mixer sign {result.mix_sign}"
+            )
+            continue
+        freq_list = [f for f in config.all_target_freqs() if f > 0]
+        mode = (config.demod_mode or "").lower()
+        for freq, peak in zip(freq_list, result.audio_peaks or [result.audio_peak]):
+            if peak > 0:
+                peak_db = 20.0 * math.log10(peak)
+                what = "IQ slice peak magnitude" if mode == "none" else "Audio peak level"
+                print(f"[{int(round(freq))}] {what}: {peak_db:.2f} dBFS")
     return 0
 
 

@@ -1,5 +1,8 @@
 """The port's command line (``iq_to_audio_torch.cli.main``) on the CPU: the
-modes that run, byte-identical with the API, and the flags that exit 2."""
+modes that run, byte-identical with the API, the usage errors that exit 2,
+and the front ends (GUI, ``--audio-post``, ``digital``) exiting as the JAX
+command line does (their full tests: ``test_torch_post.py`` and
+``test_torch_interactive.py``)."""
 
 from __future__ import annotations
 
@@ -158,23 +161,30 @@ def test_benchmark(capsys):
     assert rc == 0
 
 
-UNPORTED = [
-    (["--interactive", "--in", "x.wav"], "--interactive"),
-    (["--in", "x.wav", "--ft", "1e6"], "--cli"),
-    (["--cli", "--audio-post", "some_dir"], "--audio-post"),
-    (["--cli", "--audio-post", "d", "--audio-post-mode", "static", "--audio-post-overwrite"],
-     "--audio-post"),
-    (["digital", "--audio-dir", "some_dir"], "digital"),
+FRONT_ENDS = [
+    ["--interactive", "--in", "x.wav"],
+    ["--in", "x.wav", "--ft", "1e6"],
+    ["--cli", "--audio-post", "some_dir"],
+    ["--cli", "--audio-post", "d", "--audio-post-mode", "static", "--audio-post-overwrite"],
+    ["digital", "--audio-dir", "some_dir"],
 ]
 
 
-@pytest.mark.parametrize("argv,flag", UNPORTED)
-def test_unported_flags_exit_2(argv, flag, capsys, tmp_path, monkeypatch):
+@pytest.mark.parametrize("argv", FRONT_ENDS)
+def test_front_ends_exit_as_the_jax_cli(argv, caplog, tmp_path, monkeypatch):
+    """The GUI (without ``IQ2A_QT=headless``), ``--audio-post`` on a missing
+    path and ``digital`` on a missing directory: the JAX command line's exit
+    status and error lines, and nothing written."""
     monkeypatch.chdir(tmp_path)
-    assert tcli.main(["--device", "cpu", *argv]) == 2
-    err = capsys.readouterr().err
-    assert f" {flag}: " in err and "ROADMAP.md" in err
-    assert not list(tmp_path.iterdir())  # nothing ran
+    monkeypatch.delenv("IQ2A_QT", raising=False)
+    seen = []
+    for main, extra in ((jcli.main, []), (tcli.main, ["--device", "cpu"])):
+        caplog.clear()
+        rc = main([*extra, *argv])
+        seen.append((rc, [r.getMessage() for r in caplog.records if r.levelname == "ERROR"]))
+    assert seen[1] == seen[0]
+    assert seen[1][0] == 1 and seen[1][1]
+    assert not list(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize(

@@ -329,9 +329,37 @@ def test_port_imports_no_jax():
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'iq_to_audio_tpu'))]\n"
         "assert not bad, bad\n"
         "new = ['iq_to_audio_torch.demod.am', 'iq_to_audio_torch.demod.ssb',\n"
-        "       'iq_to_audio_torch.pipeline.progress']\n"
+        "       'iq_to_audio_torch.pipeline.progress', 'iq_to_audio_torch.post.squelch',\n"
+        "       'iq_to_audio_torch.post.docker_backend', 'iq_to_audio_torch.interactive.workers',\n"
+        "       'iq_to_audio_torch.interactive.headless_qt', 'iq_to_audio_torch.interactive.app']\n"
         "missing = [k for k in new if k not in sys.modules]\n"
         "assert not missing, missing\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_interactive_workers_import_without_matplotlib():
+    """``interactive._qt`` resolves the matplotlib canvas on first use: the
+    workers, models, state and the headless pool import with matplotlib
+    blocked, and only the window needs it."""
+    code = (
+        "import os, sys\n"
+        "os.environ['IQ2A_QT'] = 'headless'\n"
+        "sys.modules['matplotlib'] = None\n"
+        "import iq_to_audio_torch.interactive.workers as w\n"
+        "import iq_to_audio_torch.interactive.state, iq_to_audio_torch.interactive.models\n"
+        "from iq_to_audio_torch.interactive._qt import QThreadPool\n"
+        "assert w.PreviewWorker and w.AudioPostWorker and QThreadPool.globalInstance()\n"
+        "try:\n"
+        "    import iq_to_audio_torch.interactive.app\n"
+        "except ImportError:\n"
+        "    pass\n"
+        "else:\n"
+        "    raise AssertionError('the window imported without matplotlib')\n"
+        "assert not [k for k in sys.modules if k.startswith('matplotlib.')]\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
