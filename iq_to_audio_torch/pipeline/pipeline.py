@@ -47,6 +47,7 @@ from ..ops.ddc import DDCPlan, bandpass_kernel
 from ..ops.nco import nco_increment_fixed
 from ..ops.resample import ResamplePlan, design_resampler_kernel
 from ..ref.chain import choose_mix_sign
+from ..utils import spans
 from ..utils.device import resolve_device
 from ..utils.freq import detect_center_frequency
 from .config import ProcessingConfig
@@ -123,9 +124,7 @@ class _PinnedRing:
     def next(self) -> tuple[torch.Tensor, int]:
         i = self.i
         self.i = (i + 1) % len(self.bufs)
-        if self.events[i] is not None:
-            self.events[i].synchronize()
-            self.events[i] = None
+        self.wait(i)
         return self.bufs[i], i
 
     def record(self, i: int) -> None:
@@ -136,8 +135,21 @@ class _PinnedRing:
 
     def wait(self, i: int) -> None:
         if self.events[i] is not None:
-            self.events[i].synchronize()
+            with spans.span("iq2a.wait"):
+                self.events[i].synchronize()
             self.events[i] = None
+
+
+def _read(reader: IQReader):
+    """The reader's next raw block, as an ``iq2a.read`` span."""
+    with spans.span("iq2a.read"):
+        return reader.read_block_raw()
+
+
+def _write(write, samples: np.ndarray) -> None:
+    """One writer call (``write`` / ``write_s16``) as an ``iq2a.write`` span."""
+    with spans.span("iq2a.write"):
+        write(samples)
 
 
 @contextlib.contextmanager
@@ -161,6 +173,7 @@ def _profiled(profile_dir: Path | None, device: torch.device):
             torch.cuda.synchronize(device)
     trace = out / "chunk_loop.trace.json"
     prof.export_chrome_trace(str(trace))
+    spans.reset()  # the trace holds the loop's spans; keep none in process
     LOG.info("Profiler trace written to %s", trace)
 
 
@@ -225,13 +238,15 @@ class ProcessingPipeline:
 
     # -- main entry ----------------------------------------------------------
 
+    @spans.job
     def run(self, progress_sink: ProgressSink | None = None) -> ProcessingResult:
         cfg = self.config
         device = resolve_device(cfg.device)
         if self._input_spec is None:
-            spec, source = resolve_input_format(
-                cfg.in_path, requested=cfg.input_format, container_hint=cfg.input_container
-            )
+            with spans.span("iq2a.setup.probe"):
+                spec, source = resolve_input_format(
+                    cfg.in_path, requested=cfg.input_format, container_hint=cfg.input_container
+                )
             self._input_spec = spec
             if not cfg.input_format_source:
                 cfg.input_format_source = source
@@ -315,7 +330,8 @@ class ProcessingPipeline:
             sample_rate = float(manual_rate)
             probe = SampleRateProbe(override=sample_rate)
         else:
-            probe = probe_sample_rate(cfg.in_path)
+            with spans.span("iq2a.setup.probe"):
+                probe = probe_sample_rate(cfg.in_path)
             if manual_rate is not None:
                 sample_rate = float(manual_rate)
                 probe = dataclasses.replace(probe, override=sample_rate)
@@ -350,7 +366,8 @@ class ProcessingPipeline:
 
         center_freq = cfg.center_freq
         if center_freq is None:
-            detection = detect_center_frequency(cfg.in_path)
+            with spans.span("iq2a.setup.probe"):
+                detection = detect_center_frequency(cfg.in_path)
             if detection.value is None:
                 raise ValueError(
                     "Center frequency not supplied and could not be determined "
@@ -366,62 +383,63 @@ class ProcessingPipeline:
             raise ValueError("At most five target frequencies are supported per run.")
         offsets = [f - center_freq for f in freqs]
         target_freq, freq_offset = freqs[0], offsets[0]
-        decimation, fs_channel = compute_decimation(sample_rate, cfg.fs_ch_target)
-        LOG.info(
-            "Input %.2f Hz, center %.0f Hz, target(s) %s (offset(s) %s Hz), "
-            "decimation %d -> %.2f Hz, %s, device %s.",
-            sample_rate, center_freq, "/".join(f"{f:.0f}" for f in freqs),
-            "/".join(f"{o:.0f}" for o in offsets), decimation, fs_channel,
-            cfg.demod_mode.upper(), device,
-        )
-
-        # --- geometry / plans ------------------------------------------------
-        taps = design_channel_filter(sample_rate, cfg.bandwidth, decimation)
-        target_chunk = tune_chunk_size(sample_rate, cfg.chunk_size)
-        if device.type == "cuda" and cfg.chunk_size >= 1_048_576:
-            # the card amortises per-chunk launch and copy latency: prefer
-            # the 4Mi cap unless the user asked for less
-            target_chunk = max(target_chunk, 1 << 22)
-        rs_align = 1
-        if not pass_through:
-            rate_plan = ResamplePlan.create(fs_channel, _OUTPUT_RATE, 1)
-            rs_align = 1 if rate_plan.identity else rate_plan.down
-        ddc_plan = DDCPlan.create(
-            len(taps), decimation, target_chunk=target_chunk, out_align=rs_align,
-            max_chunk=1 << 22,
-        )
-        chunk_size = ddc_plan.chunk_size
-        rs_plan = (
-            None if pass_through
-            else ResamplePlan.create(fs_channel, _OUTPUT_RATE, ddc_plan.out_size)
-        )
-        resampling = rs_plan is not None and not rs_plan.identity
-
-        # --- checkpoint/resume: carried state + input offset -----------------
-        resume_data = None
-        ckpt_path: Path | None = None
-        ckpt_requested = bool(cfg.checkpoint_secs or cfg.resume) and not cfg.probe_only
-        if ckpt_requested and pass_through:
-            # the slice output would need codec-exact truncation on resume
-            LOG.warning(
-                "Checkpoint/resume is not supported in pass-through "
-                "(--demod none) runs; continuing without checkpoints."
-            )
-            ckpt_requested = False
-        if ckpt_requested:
-            ckpt_path = Path(str(self._channel_paths(freqs, cfg.output_path)[0]) + ".ckpt")
-        if cfg.resume and ckpt_path is not None and ckpt_path.exists():
-            with ckpt_path.open("rb") as f:
-                resume_data = pickle.load(f)
+        with spans.span("iq2a.setup.build"):
+            decimation, fs_channel = compute_decimation(sample_rate, cfg.fs_ch_target)
             LOG.info(
-                "Resuming from %s (%.2f s of input already processed).",
-                ckpt_path, resume_data["counters"]["processed_samples"] / sample_rate,
+                "Input %.2f Hz, center %.0f Hz, target(s) %s (offset(s) %s Hz), "
+                "decimation %d -> %.2f Hz, %s, device %s.",
+                sample_rate, center_freq, "/".join(f"{f:.0f}" for f in freqs),
+                "/".join(f"{o:.0f}" for o in offsets), decimation, fs_channel,
+                cfg.demod_mode.upper(), device,
             )
-        resume_frames = resume_data["counters"]["processed_samples"] if resume_data else 0
-        if max_input_samples is not None and resume_frames:
-            # the reader seeks past the processed samples, so the window
-            # budget shrinks by the same amount
-            max_input_samples = max(0, max_input_samples - resume_frames)
+
+            # --- geometry / plans --------------------------------------------
+            taps = design_channel_filter(sample_rate, cfg.bandwidth, decimation)
+            target_chunk = tune_chunk_size(sample_rate, cfg.chunk_size)
+            if device.type == "cuda" and cfg.chunk_size >= 1_048_576:
+                # the card amortises per-chunk launch and copy latency: prefer
+                # the 4Mi cap unless the user asked for less
+                target_chunk = max(target_chunk, 1 << 22)
+            rs_align = 1
+            if not pass_through:
+                rate_plan = ResamplePlan.create(fs_channel, _OUTPUT_RATE, 1)
+                rs_align = 1 if rate_plan.identity else rate_plan.down
+            ddc_plan = DDCPlan.create(
+                len(taps), decimation, target_chunk=target_chunk, out_align=rs_align,
+                max_chunk=1 << 22,
+            )
+            chunk_size = ddc_plan.chunk_size
+            rs_plan = (
+                None if pass_through
+                else ResamplePlan.create(fs_channel, _OUTPUT_RATE, ddc_plan.out_size)
+            )
+            resampling = rs_plan is not None and not rs_plan.identity
+
+            # --- checkpoint/resume: carried state + input offset -------------
+            resume_data = None
+            ckpt_path: Path | None = None
+            ckpt_requested = bool(cfg.checkpoint_secs or cfg.resume) and not cfg.probe_only
+            if ckpt_requested and pass_through:
+                # the slice output would need codec-exact truncation on resume
+                LOG.warning(
+                    "Checkpoint/resume is not supported in pass-through "
+                    "(--demod none) runs; continuing without checkpoints."
+                )
+                ckpt_requested = False
+            if ckpt_requested:
+                ckpt_path = Path(str(self._channel_paths(freqs, cfg.output_path)[0]) + ".ckpt")
+            if cfg.resume and ckpt_path is not None and ckpt_path.exists():
+                with ckpt_path.open("rb") as f:
+                    resume_data = pickle.load(f)
+                LOG.info(
+                    "Resuming from %s (%.2f s of input already processed).",
+                    ckpt_path, resume_data["counters"]["processed_samples"] / sample_rate,
+                )
+            resume_frames = resume_data["counters"]["processed_samples"] if resume_data else 0
+            if max_input_samples is not None and resume_frames:
+                # the reader seeks past the processed samples, so the window
+                # budget shrinks by the same amount
+                max_input_samples = max(0, max_input_samples - resume_frames)
 
         reader = IQReader(
             cfg.in_path,
@@ -432,7 +450,9 @@ class ProcessingPipeline:
             start_frame=seg_start + resume_frames,
             prefetch_depth=0,  # synchronous reads: no Python thread beside dispatch
         )
-        with reader:
+        with contextlib.ExitStack() as opened:
+            with spans.span("iq2a.setup.probe"):
+                opened.enter_context(reader)
             total_input_samples = float(reader.total_frames)
             if max_input_samples is not None:
                 total_input_samples = (
@@ -465,22 +485,23 @@ class ProcessingPipeline:
             check_cancel("initialization")
 
             # --- warm-up: first block + mixer sign ---------------------------
-            raw_first = reader.read_block_raw()
-            if raw_first is None or raw_first.size == 0:
-                raise RuntimeError("Input stream produced no samples.")
-            if resume_data is not None:
-                mix_sign = resume_data["mix_sign"]
-            elif cfg.mix_sign_override in (1, -1):
-                mix_sign = cfg.mix_sign_override
-            else:
-                probe_len = min(
-                    raw_first.size // 2,
-                    max(int(sample_rate * 0.05), len(taps) * 4, 131_072),
-                )
-                warm = convert_to_complex(
-                    raw_first[: 2 * probe_len], input_spec.codec, cfg.iq_order
-                )
-                mix_sign = choose_mix_sign(warm, sample_rate, freq_offset, taps, decimation)
+            with spans.span("iq2a.setup.mix_sign"):
+                raw_first = _read(reader)
+                if raw_first is None or raw_first.size == 0:
+                    raise RuntimeError("Input stream produced no samples.")
+                if resume_data is not None:
+                    mix_sign = resume_data["mix_sign"]
+                elif cfg.mix_sign_override in (1, -1):
+                    mix_sign = cfg.mix_sign_override
+                else:
+                    probe_len = min(
+                        raw_first.size // 2,
+                        max(int(sample_rate * 0.05), len(taps) * 4, 131_072),
+                    )
+                    warm = convert_to_complex(
+                        raw_first[: 2 * probe_len], input_spec.codec, cfg.iq_order
+                    )
+                    mix_sign = choose_mix_sign(warm, sample_rate, freq_offset, taps, decimation)
             LOG.info("Selected mixer sign %d based on warm-up snippet.", mix_sign)
             check_cancel("warm-up")
             if cfg.probe_only:
@@ -496,170 +517,172 @@ class ProcessingPipeline:
                     audio_peak=0.0,
                 )
 
-            # --- writers -----------------------------------------------------
-            output_paths.extend(self._channel_paths(freqs, cfg.output_path))
-            for p in output_paths:
-                p.parent.mkdir(parents=True, exist_ok=True)
-            dump_paths: list[Path | None] = [None] * len(freqs)
-            if cfg.dump_iq_path:
-                dump_paths = [
-                    self._annotate(cfg.dump_iq_path, f) if len(freqs) > 1 else cfg.dump_iq_path
-                    for f in freqs
-                ]
-            appending = resume_data is not None
-            if appending:
-                # outputs may hold windows flushed after the checkpoint:
-                # truncate back to the checkpointed position (resume implies
-                # audio mode: pass-through runs write no checkpoint)
-                ctr = resume_data["counters"]
+            with spans.span("iq2a.setup.build"):
+                # --- writers -------------------------------------------------
+                output_paths.extend(self._channel_paths(freqs, cfg.output_path))
                 for p in output_paths:
-                    _truncate_payload(p, ctr["rs_emitted"] * 2)  # mono s16
-                for p in dump_paths:
-                    if p is not None and Path(p).exists():
-                        with Path(p).open("r+b") as f:
-                            f.truncate(ctr["dec_emitted"] * 8)  # cf32 pairs
-            audio_writers: list[AudioWriter] = []
-            slice_writers: list[IQSliceWriter] = []
-            iq_writers = [IQDebugWriter(p, fs_channel, append=appending) for p in dump_paths]
-            if pass_through:
-                slice_writers = [
-                    IQSliceWriter(p, fs_channel, input_spec, append=appending)
-                    for p in output_paths
-                ]
-            else:
-                audio_writers = [AudioWriter(p, append=appending) for p in output_paths]
+                    p.parent.mkdir(parents=True, exist_ok=True)
+                dump_paths: list[Path | None] = [None] * len(freqs)
+                if cfg.dump_iq_path:
+                    dump_paths = [
+                        self._annotate(cfg.dump_iq_path, f) if len(freqs) > 1 else cfg.dump_iq_path
+                        for f in freqs
+                    ]
+                appending = resume_data is not None
                 if appending:
-                    for w, st in zip(audio_writers, resume_data["rms"]):
-                        w.seed_rms(*st)
-            all_writers.extend([*iq_writers, *slice_writers, *audio_writers])
+                    # outputs may hold windows flushed after the checkpoint:
+                    # truncate back to the checkpointed position (resume implies
+                    # audio mode: pass-through runs write no checkpoint)
+                    ctr = resume_data["counters"]
+                    for p in output_paths:
+                        _truncate_payload(p, ctr["rs_emitted"] * 2)  # mono s16
+                    for p in dump_paths:
+                        if p is not None and Path(p).exists():
+                            with Path(p).open("r+b") as f:
+                                f.truncate(ctr["dec_emitted"] * 8)  # cf32 pairs
+                audio_writers: list[AudioWriter] = []
+                slice_writers: list[IQSliceWriter] = []
+                iq_writers = [IQDebugWriter(p, fs_channel, append=appending) for p in dump_paths]
+                if pass_through:
+                    slice_writers = [
+                        IQSliceWriter(p, fs_channel, input_spec, append=appending)
+                        for p in output_paths
+                    ]
+                else:
+                    audio_writers = [AudioWriter(p, append=appending) for p in output_paths]
+                    if appending:
+                        for w, st in zip(audio_writers, resume_data["rms"]):
+                            w.seed_rms(*st)
+                all_writers.extend([*iq_writers, *slice_writers, *audio_writers])
 
-            # --- build the device step ---------------------------------------
-            incs = [nco_increment_fixed(off, sample_rate, sign=mix_sign) for off in offsets]
-            decoder = None
-            if not pass_through:
-                decoder = create_decoder(
-                    cfg.demod_mode, deemph_us=cfg.deemph_us, agc_enabled=cfg.agc_enabled
+                # --- build the device step -----------------------------------
+                incs = [nco_increment_fixed(off, sample_rate, sign=mix_sign) for off in offsets]
+                decoder = None
+                if not pass_through:
+                    decoder = create_decoder(
+                        cfg.demod_mode, deemph_us=cfg.deemph_us, agc_enabled=cfg.agc_enabled
+                    )
+                    decoder.setup(fs_channel)
+                want_stages = cfg.plot_stages_path is not None
+                checkpointing = bool(cfg.checkpoint_secs) and ckpt_path is not None
+                # a resumed run sizes its windows as the interrupted run did (for
+                # the whole input window, not the part left), so acc_chunks and
+                # the fingerprint agree
+                geometry_chunks = int(math.ceil((total_input_samples + resume_frames) / chunk_size))
+                step = build_chunk_step(
+                    ddc_plan=ddc_plan,
+                    rs_plan=rs_plan,
+                    ddc_kernel_np=bandpass_kernel(taps, incs),
+                    rs_kernel_np=(
+                        design_resampler_kernel(rs_plan.up, rs_plan.down) if resampling else None
+                    ),
+                    incs_fixed=incs,
+                    codec=input_spec.codec,
+                    iq_order=cfg.iq_order,
+                    decoder=decoder,
+                    device=device,
+                    pass_through=pass_through,
+                    dump_iq=cfg.dump_iq_path is not None,
+                    # a stage-snapshot run dispatches chunk by chunk
+                    super_chunks=1 if want_stages else None,
+                    want_stages=want_stages,
+                    taps_np=np.asarray(taps),
+                    fft_size=None if cfg.auto_filter_block else int(cfg.filter_block),
+                    est_total_chunks=(
+                        None if cfg.fixed_device_geometry else (geometry_chunks or None)
+                    ),
+                    # checkpoints land on window boundaries: windows no longer
+                    # than the checkpoint cadence
+                    acc_chunks_cap=(
+                        max(1, int(cfg.checkpoint_secs * sample_rate // chunk_size))
+                        if checkpointing else None
+                    ),
                 )
-                decoder.setup(fs_channel)
-            want_stages = cfg.plot_stages_path is not None
-            checkpointing = bool(cfg.checkpoint_secs) and ckpt_path is not None
-            # a resumed run sizes its windows as the interrupted run did (for
-            # the whole input window, not the part left), so acc_chunks and
-            # the fingerprint agree
-            geometry_chunks = int(math.ceil((total_input_samples + resume_frames) / chunk_size))
-            step = build_chunk_step(
-                ddc_plan=ddc_plan,
-                rs_plan=rs_plan,
-                ddc_kernel_np=bandpass_kernel(taps, incs),
-                rs_kernel_np=(
-                    design_resampler_kernel(rs_plan.up, rs_plan.down) if resampling else None
-                ),
-                incs_fixed=incs,
-                codec=input_spec.codec,
-                iq_order=cfg.iq_order,
-                decoder=decoder,
-                device=device,
-                pass_through=pass_through,
-                dump_iq=cfg.dump_iq_path is not None,
-                # a stage-snapshot run dispatches chunk by chunk
-                super_chunks=1 if want_stages else None,
-                want_stages=want_stages,
-                taps_np=np.asarray(taps),
-                fft_size=None if cfg.auto_filter_block else int(cfg.filter_block),
-                est_total_chunks=(
-                    None if cfg.fixed_device_geometry else (geometry_chunks or None)
-                ),
-                # checkpoints land on window boundaries: windows no longer
-                # than the checkpoint cadence
-                acc_chunks_cap=(
-                    max(1, int(cfg.checkpoint_secs * sample_rate // chunk_size))
-                    if checkpointing else None
-                ),
-            )
-            fingerprint = {
-                # input identity + window: a resume against another capture
-                # or window is rejected, not spliced
-                "in_path": str(Path(cfg.in_path).resolve()),
-                "in_size": os.stat(cfg.in_path).st_size,
-                "in_start": seg_start,
-                "in_num": cfg.input_num_samples,
-                "deemph_us": cfg.deemph_us,
-                "chunk": chunk_size,
-                "decimation": decimation,
-                "sample_rate": sample_rate,
-                "bandwidth": cfg.bandwidth,
-                "taps_sha": hashlib.sha1(taps.tobytes()).hexdigest(),
-                "mode": cfg.demod_mode.lower(),
-                "agc": cfg.agc_enabled,
-                "incs": tuple(incs),
-                "codec": input_spec.codec,
-                "iq_order": cfg.iq_order,
-                "acc_chunks": step.acc_chunks,
-                # the fft channelizer carries another state layout (the
-                # (2, L-1) pair tail) than conv and native, which interchange
-                "channelizer": "fft" if step.channelizer == "fft" else "conv",
-            }
-            if resume_data is not None:
-                if resume_data.get("version") != _CKPT_VERSION:
-                    raise ValueError(
-                        f"Checkpoint {ckpt_path} was written by an incompatible "
-                        "version (state layout changed); remove it or rerun "
-                        "without --resume."
-                    )
-                if resume_data["fingerprint"] != fingerprint:
-                    raise ValueError(
-                        f"Checkpoint {ckpt_path} does not match this "
-                        "configuration; remove it or rerun without --resume."
-                    )
-            on_drained = None
-            if checkpointing:
-                cadence = int(cfg.checkpoint_secs * sample_rate)
-                next_ckpt = [resume_frames + cadence]
+                fingerprint = {
+                    # input identity + window: a resume against another capture
+                    # or window is rejected, not spliced
+                    "in_path": str(Path(cfg.in_path).resolve()),
+                    "in_size": os.stat(cfg.in_path).st_size,
+                    "in_start": seg_start,
+                    "in_num": cfg.input_num_samples,
+                    "deemph_us": cfg.deemph_us,
+                    "chunk": chunk_size,
+                    "decimation": decimation,
+                    "sample_rate": sample_rate,
+                    "bandwidth": cfg.bandwidth,
+                    "taps_sha": hashlib.sha1(taps.tobytes()).hexdigest(),
+                    "mode": cfg.demod_mode.lower(),
+                    "agc": cfg.agc_enabled,
+                    "incs": tuple(incs),
+                    "codec": input_spec.codec,
+                    "iq_order": cfg.iq_order,
+                    "acc_chunks": step.acc_chunks,
+                    # the fft channelizer carries another state layout (the
+                    # (2, L-1) pair tail) than conv and native, which interchange
+                    "channelizer": "fft" if step.channelizer == "fft" else "conv",
+                }
+                if resume_data is not None:
+                    if resume_data.get("version") != _CKPT_VERSION:
+                        raise ValueError(
+                            f"Checkpoint {ckpt_path} was written by an incompatible "
+                            "version (state layout changed); remove it or rerun "
+                            "without --resume."
+                        )
+                    if resume_data["fingerprint"] != fingerprint:
+                        raise ValueError(
+                            f"Checkpoint {ckpt_path} does not match this "
+                            "configuration; remove it or rerun without --resume."
+                        )
+                on_drained = None
+                if checkpointing:
+                    cadence = int(cfg.checkpoint_secs * sample_rate)
+                    next_ckpt = [resume_frames + cadence]
 
-                def on_drained(st) -> None:
-                    # the phased schedule calls this after every drain, when
-                    # the written audio, the counters and ``st`` agree
-                    if loop.processed_samples < next_ckpt[0]:
-                        return
-                    payload = {
-                        "version": _CKPT_VERSION,
-                        "fingerprint": fingerprint,
-                        "mix_sign": mix_sign,
-                        "state": state_to_jax(st),
-                        "rms": [w.rms_state for w in audio_writers],
-                        "counters": loop.counters(),
-                    }
-                    tmp = ckpt_path.with_suffix(".ckpt.tmp")
-                    with tmp.open("wb") as f:
-                        pickle.dump(payload, f)
-                    tmp.replace(ckpt_path)
-                    next_ckpt[0] = loop.processed_samples + cadence
-                    LOG.info(
-                        "Checkpoint written at %.2f s of input (%s).",
-                        loop.processed_samples / sample_rate, ckpt_path,
-                    )
+                    def on_drained(st) -> None:
+                        # the phased schedule calls this after every drain, when
+                        # the written audio, the counters and ``st`` agree
+                        if loop.processed_samples < next_ckpt[0]:
+                            return
+                        payload = {
+                            "version": _CKPT_VERSION,
+                            "fingerprint": fingerprint,
+                            "mix_sign": mix_sign,
+                            "state": state_to_jax(st),
+                            "rms": [w.rms_state for w in audio_writers],
+                            "counters": loop.counters(),
+                        }
+                        tmp = ckpt_path.with_suffix(".ckpt.tmp")
+                        with tmp.open("wb") as f:
+                            pickle.dump(payload, f)
+                        tmp.replace(ckpt_path)
+                        next_ckpt[0] = loop.processed_samples + cadence
+                        LOG.info(
+                            "Checkpoint written at %.2f s of input (%s).",
+                            loop.processed_samples / sample_rate, ckpt_path,
+                        )
 
-            loop = _ChunkLoop(
-                step, reader, raw_first, max_input_samples, decimation,
-                tracker=tracker, check_cancel=check_cancel, on_drained=on_drained,
-                want_stages=want_stages, fetch=not self.warm_no_fetch,
-            )
-            state = step.init_state(seg_start)
-            if resume_data is not None:
-                state = state_from_jax(resume_data["state"], device)
-                loop.restore(resume_data["counters"])
+                loop = _ChunkLoop(
+                    step, reader, raw_first, max_input_samples, decimation,
+                    tracker=tracker, check_cancel=check_cancel, on_drained=on_drained,
+                    want_stages=want_stages, fetch=not self.warm_no_fetch,
+                )
+                state = step.init_state(seg_start)
+                if resume_data is not None:
+                    state = state_from_jax(resume_data["state"], device)
+                    loop.restore(resume_data["counters"])
             writers = slice_writers if pass_through else audio_writers
             loop_start = time.perf_counter()
-            with _profiled(cfg.profile_dir, device):
+            with _profiled(cfg.profile_dir, device), spans.span("iq2a.loop"):
                 loop.run(writers, state, iq_writers=iq_writers)
             loop_seconds = time.perf_counter() - loop_start
-            if ckpt_path is not None and not loop.limit_exhausted:
-                ckpt_path.unlink(missing_ok=True)  # the run completed
-            tracker.status("flush outputs")
-            if decoder is not None:
-                decoder.finalize()
-            for w in all_writers:
-                w.close()
+            with spans.span("iq2a.flush"):
+                if ckpt_path is not None and not loop.limit_exhausted:
+                    ckpt_path.unlink(missing_ok=True)  # the run completed
+                tracker.status("flush outputs")
+                if decoder is not None:
+                    decoder.finalize()
+                for w in all_writers:
+                    w.close()
 
         if loop.limit_exhausted and preview_seconds is not None:
             LOG.info(
@@ -794,14 +817,15 @@ class _ChunkLoop:
                     self.limit_exhausted = True
             if valid:
                 if block.size < 2 * chunk_size:
-                    padded = np.full(2 * chunk_size, raw_zero, dtype=block.dtype)
-                    padded[: block.size] = block
+                    with spans.span("iq2a.pad"):
+                        padded = np.full(2 * chunk_size, raw_zero, dtype=block.dtype)
+                        padded[: block.size] = block
                     block = padded
                 consumed += valid
                 yield valid, block
             if self.limit_exhausted:
                 return
-            nxt = self.reader.read_block_raw()
+            nxt = _read(self.reader)
             if nxt is None or nxt.size == 0:
                 return
             block = nxt
@@ -817,7 +841,8 @@ class _ChunkLoop:
                 yield group
                 group = []
         if group:
-            pad = np.full_like(group[0][1], 128 if self.step.codec == "pcm_u8" else 0)
+            with spans.span("iq2a.pad"):
+                pad = np.full_like(group[0][1], 128 if self.step.codec == "pcm_u8" else 0)
             while len(group) < s:
                 group.append((0, pad))
             yield group
@@ -861,38 +886,43 @@ class _ChunkLoop:
         decimation = self.decimation
         tracker = self.tracker
         raw_dtype = torch.from_numpy(self.raw_first[:0]).dtype
+        frame_bytes = 2 * self.raw_first.itemsize  # an interleaved input frame
 
-        accs = step.init_accs()
-        uploads = _PinnedRing(
-            (step.super_chunks, 2 * step.chunk_size), raw_dtype, device
-        )
-        # one host ring per accumulator (audio, iq_r, iq_i), moved in step
-        downloads = {
-            name: _PinnedRing(tuple(acc.shape), acc.dtype, device) for name, acc in accs.items()
-        }
+        with spans.span("iq2a.alloc"):
+            accs = step.init_accs()
+            uploads = _PinnedRing(
+                (step.super_chunks, 2 * step.chunk_size), raw_dtype, device
+            )
+            # one host ring per accumulator (audio, iq_r, iq_i), moved in step
+            downloads = {
+                name: _PinnedRing(tuple(acc.shape), acc.dtype, device)
+                for name, acc in accs.items()
+            }
         idx = 0  # device-consumed chunks
         pending = None  # (host buffer slot, counts) of a window not yet written
         last_audio: dict = {}
 
         def drain(slot_i, counts):
-            host = {}
-            for name, ring in downloads.items():
-                ring.wait(slot_i)
-                host[name] = ring.bufs[slot_i].numpy()
-            if "iq_r" in host:
-                iq_np = host["iq_r"] + 1j * host["iq_i"]
-            for s, (dec_valid, audio_count) in enumerate(counts):
-                if pass_through or dump_iq:
-                    for c, w in enumerate(writers if pass_through else iq_writers):
-                        w.write(iq_np[c, s * n_dec : s * n_dec + dec_valid])
+            with spans.span("iq2a.drain"):
+                host = {}
+                for name, ring in downloads.items():
+                    ring.wait(slot_i)
+                    host[name] = ring.bufs[slot_i].numpy()
+                if "iq_r" in host:
+                    iq_np = host["iq_r"] + 1j * host["iq_i"]
+                for s, (dec_valid, audio_count) in enumerate(counts):
+                    if pass_through or dump_iq:
+                        for c, w in enumerate(writers if pass_through else iq_writers):
+                            _write(w.write, iq_np[c, s * n_dec : s * n_dec + dec_valid])
+                    if not pass_through:
+                        lo = s * audio_cap
+                        for c, w in enumerate(writers):
+                            audio = host["audio"][c, lo : lo + audio_count]
+                            _write(w.write_s16, audio)
                 if not pass_through:
-                    lo = s * audio_cap
-                    for c, w in enumerate(writers):
-                        w.write_s16(host["audio"][c, lo : lo + audio_count])
-            if not pass_through:
-                last_audio.update(
-                    buf=host["audio"], slot=len(counts) - 1, count=counts[-1][1]
-                )
+                    last_audio.update(
+                        buf=host["audio"], slot=len(counts) - 1, count=counts[-1][1]
+                    )
 
         for wgroups in self._windows():
             self.check_cancel(f"chunk {idx + 1}")
@@ -903,12 +933,15 @@ class _ChunkLoop:
             window = []
             for group in wgroups:
                 # stage and upload the group (async H2D from pinned memory)
-                host, ui = uploads.next()
-                host_np = host.numpy()
-                for s, (_v, blk) in enumerate(group):
-                    host_np[s] = blk
-                raw_dev = host.to(device, non_blocking=True)
-                uploads.record(ui)
+                with spans.span("iq2a.stage"):
+                    host, ui = uploads.next()
+                    host_np = host.numpy()
+                    for s, (_v, blk) in enumerate(group):
+                        host_np[s] = blk
+                    raw_dev = host.to(device, non_blocking=True)
+                    uploads.record(ui)
+                    spans.count("h2d_bytes", host.nbytes)
+                    spans.count("input_bytes", sum(v for v, _blk in group) * frame_bytes)
                 # exact host bookkeeping (Python ints, no syncs)
                 slot_base = idx % acc_chunks
                 rs_offset = rs_plan.chunk_offset(self.rs_in_device) if resampling else 0
@@ -929,13 +962,15 @@ class _ChunkLoop:
                     group_valid += valid_frames
                     group_dec += dec_valid
                     group_audio += audio_count
-                if self.want_stages and idx == 0:
-                    # stage runs dispatch chunk by chunk (super_chunks == 1)
-                    state = self._snapshot_chunk(state, accs, raw_dev[0], rs_offset, slot_base)
-                elif step.super_chunks > 1:
-                    state = step.fn_super(state, accs, raw_dev, rs_offset, slot_base)
-                else:
-                    state = step.fn(state, accs, raw_dev[0], rs_offset, slot_base)
+                with spans.span("iq2a.step"):
+                    if self.want_stages and idx == 0:
+                        # stage runs dispatch chunk by chunk (super_chunks == 1)
+                        state = self._snapshot_chunk(state, accs, raw_dev[0], rs_offset, slot_base)
+                    elif step.super_chunks > 1:
+                        state = step.fn_super(state, accs, raw_dev, rs_offset, slot_base)
+                    else:
+                        state = step.fn(state, accs, raw_dev[0], rs_offset, slot_base)
+                    spans.count("chunks", len(group))
                 idx += len(group)
                 # progress from the host counters: no device sync
                 tracker.advance("ingest", float(group_valid))
@@ -948,10 +983,11 @@ class _ChunkLoop:
             if not self.fetch:
                 continue
             # one D2H per window, queued behind its compute on the stream
-            for name, ring in downloads.items():
-                host, di = ring.next()
-                host.copy_(accs[name], non_blocking=True)
-                ring.record(di)
+            with spans.span("iq2a.fetch"):
+                for name, ring in downloads.items():
+                    host, di = ring.next()
+                    host.copy_(accs[name], non_blocking=True)
+                    ring.record(di)
             if pending is not None:
                 drain(*pending)
             pending = (di, window)
@@ -960,7 +996,8 @@ class _ChunkLoop:
             drain(*pending)
         self.dispatched = idx
         if not self.fetch and device.type == "cuda":
-            torch.cuda.synchronize(device)
+            with spans.span("iq2a.wait"):
+                torch.cuda.synchronize(device)
 
         if resampling and "buf" in last_audio:
             # EOF flush: outputs of the final (incomplete) resampler block
@@ -978,7 +1015,7 @@ class _ChunkLoop:
                     lo = last_audio["slot"] * audio_cap + last_audio["count"]
                     hi = min(lo + extra, (last_audio["slot"] + 1) * audio_cap)
                 for c, w in enumerate(writers):
-                    w.write_s16(buf[c, lo:hi])
+                    _write(w.write_s16, buf[c, lo:hi])
         if "buf" in last_audio:
             # the device peak covers the zero-padded tail too; consult it
             # only where the +-0.99 clipper engaged and the writers lost it

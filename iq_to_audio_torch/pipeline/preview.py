@@ -15,6 +15,7 @@ from collections.abc import Callable
 from dataclasses import replace
 from pathlib import Path
 
+from ..utils import spans
 from ..utils.freq import detect_center_frequency
 from .config import ProcessingConfig
 from .pipeline import ProcessingPipeline, ProcessingResult
@@ -23,6 +24,7 @@ from .progress import ProgressSink
 LOG = logging.getLogger(__name__)
 
 
+@spans.job
 def run_preview(
     config: ProcessingConfig,
     seconds: float,
@@ -53,7 +55,8 @@ def run_preview(
     # preview callers get the actionable error immediately.
     fc, fc_source = config.center_freq, config.center_freq_source
     if fc is None:
-        found = detect_center_frequency(config.in_path)
+        with spans.span("iq2a.setup.probe"):
+            found = detect_center_frequency(config.in_path)
         if found.value is None:
             raise ValueError(
                 "Center frequency not supplied and could not be determined from "
