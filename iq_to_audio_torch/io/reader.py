@@ -228,17 +228,28 @@ class IQReader:
         zero-copy/pinned fast path for them, while `np.frombuffer` views
         over `bytes` can fall into a slow chopped-copy transfer path.
         """
-        frame_bytes = self.input_format.bytes_per_frame
-        if self._remaining <= 0:
+        want = min(self.chunk_size * self.input_format.bytes_per_frame, self._remaining)
+        if want <= 0:
             return None
-        want = min(self.chunk_size * frame_bytes, self._remaining)
         arr = np.empty(want // self._dtype.itemsize, dtype=self._dtype)
+        frames = self._read_into(arr, self.chunk_size)
+        if not frames:
+            return None
+        return arr if 2 * frames == arr.size else arr[: 2 * frames]
+
+    def _read_into(self, dest: np.ndarray, frames: int) -> int:
+        """Read up to ``frames`` whole frames into the start of ``dest``;
+        returns the frames read, 0 at EOF."""
+        frame_bytes = self.input_format.bytes_per_frame
+        want = min(frames * frame_bytes, self._remaining)
+        if want <= 0:
+            return 0
         # refill until full or true EOF: a single readinto can return short
         # on NFS/FUSE or for very large requests, and treating that as the
         # block end would drop partial-frame bytes mid-stream (every later
         # frame then starts mid-pair — silent I/Q swap for the rest of the
         # capture)
-        view = memoryview(arr).cast("B")
+        view = memoryview(dest).cast("B")[:want]
         got = 0
         while got < want:
             n = self._fd.readinto(view[got:])
@@ -247,15 +258,31 @@ class IQReader:
             got += n
         if not got:
             self._remaining = 0
-            return None
+            return 0
         self._remaining -= got
         usable = got - (got % frame_bytes)
         if usable <= 0:
             self._remaining = 0  # truncated final frame: genuine EOF
-            return None
-        if usable == want:
-            return arr
-        return arr[: usable // self._dtype.itemsize]
+        return usable // frame_bytes
+
+    def read_into(self, dest: np.ndarray, max_frames: int | None = None) -> int:
+        """Read the next block into ``dest``, a caller's C-contiguous array
+        of the codec's dtype (:attr:`raw_dtype`), from its start: at most
+        ``min(chunk_size, max_frames)`` frames.  Returns the frames read, 0
+        at EOF (and at every call after it); ``dest`` beyond them is left
+        as it was.  The chunk loop reads each block straight into its
+        pinned upload slot this way.  Needs a reader without prefetch."""
+        if self._fd is None:
+            raise RuntimeError("IQReader has not been entered.")
+        if self._queue is not None:
+            raise RuntimeError("read_into needs a reader without prefetch")
+        frames = self.chunk_size if max_frames is None else min(self.chunk_size, max_frames)
+        frames = max(0, int(frames))
+        if dest.dtype != self._dtype or not dest.flags.c_contiguous:
+            raise ValueError(f"read_into needs a C-contiguous {self._dtype} array")
+        if dest.size < 2 * frames:
+            raise ValueError(f"read_into: {dest.size} samples cannot hold {frames} frames")
+        return self._read_into(dest, frames)
 
     def read_block_raw(self) -> np.ndarray | None:
         """Next raw interleaved block (dtype per codec), or None at EOF.

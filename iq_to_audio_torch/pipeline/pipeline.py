@@ -5,8 +5,9 @@ Drives the chunk step (:mod:`.step`) from a host loop with:
 
 * one to five target frequencies batched through one channelizer pass
   (leading channel axis), one output WAV each,
-* dispatch groups of ``super_chunks`` chunks, each uploaded from a pinned
-  staging buffer with ``non_blocking=True``,
+* dispatch groups of ``super_chunks`` chunks, each read by the reader
+  straight into a pinned upload slot and uploaded with
+  ``non_blocking=True``,
 * one device-to-host copy per accumulation window, started behind the
   window's compute and drained one window later (checkpointed runs drain
   each window before the next is dispatched),
@@ -782,6 +783,11 @@ class _ChunkLoop:
         #: stage name -> numpy array of the first chunk (complex for pairs)
         self.stage_snapshots: dict[str, np.ndarray] = {}
         self.limit_exhausted = False
+        # the stream as the upload rows take it: the warm-up's block not yet
+        # staged, the frames ``max_input_samples`` leaves, the stream's end
+        self._first: np.ndarray | None = raw_first
+        self._budget = max_input_samples
+        self._ended = False
         self.dispatched = 0
         # exact host mirrors of the stream position
         self.processed_samples = 0  # complex input samples consumed
@@ -797,67 +803,72 @@ class _ChunkLoop:
         for k in self._COUNTERS:
             setattr(self, k, int(counters[k]))
 
-    def _raw_blocks(self):
-        """Valid-sliced, silence-padded raw blocks (owned arrays)."""
+    def _fill(self, row: np.ndarray, lead: bool = False) -> int:
+        """Fill one upload row in place and return its valid frames: the
+        warm-up's block for the first row of all, else the reader's next
+        block read straight into the row, as far as ``max_input_samples``
+        leaves; 0 once the stream has ended.  The row's unfilled tail gets
+        the raw zero, so a short last block, a budget cut and a silent row
+        all decode to 0.0; a group's ``lead`` row that finds nothing is left
+        as it is, since its group is dropped."""
         chunk_size = self.step.chunk_size
-        # raw-domain pad value decoding to 0.0: u8 is offset-binary
-        raw_zero = 128 if self.step.codec == "pcm_u8" else 0
-        consumed = 0
-        block = self.raw_first
-        while True:
-            valid = block.size // 2
-            if self.max_input_samples is not None:
-                remaining = self.max_input_samples - consumed
-                if remaining <= 0:
-                    self.limit_exhausted = True
-                    return
-                if valid > remaining:
-                    block = block[: 2 * remaining]
-                    valid = remaining
-                    self.limit_exhausted = True
-            if valid:
-                if block.size < 2 * chunk_size:
-                    with spans.span("iq2a.pad"):
-                        padded = np.full(2 * chunk_size, raw_zero, dtype=block.dtype)
-                        padded[: block.size] = block
-                    block = padded
-                consumed += valid
-                yield valid, block
-            if self.limit_exhausted:
-                return
-            nxt = _read(self.reader)
-            if nxt is None or nxt.size == 0:
-                return
-            block = nxt
-
-    def _groups(self):
-        """Groups of ``super_chunks`` blocks; a partial final group is padded
-        with silent chunks that count nothing (valid = 0)."""
-        s = self.step.super_chunks
-        group = []
-        for item in self._raw_blocks():
-            group.append(item)
-            if len(group) == s:
-                yield group
-                group = []
-        if group:
+        frames = 0
+        if not self._ended:
+            budget = self._budget
+            if self._first is not None:
+                first, self._first = self._first, None
+                avail = first.size // 2
+                frames = avail if budget is None else max(0, min(avail, budget))
+                row[: 2 * frames] = first[: 2 * frames]
+                short, cut = avail < chunk_size, avail > frames
+            else:
+                want = chunk_size if budget is None else min(chunk_size, budget)
+                with spans.span("iq2a.read"):
+                    frames = self.reader.read_into(row, want)
+                    if frames:
+                        spans.count("direct_bytes", 2 * row.itemsize * frames)
+                short, cut = frames < want, False
+            if budget is not None:
+                self._budget = budget = budget - frames
+            if budget is not None and budget <= 0:
+                # the budget is spent: it cut the capture if a frame is left
+                self._ended = True
+                self.limit_exhausted = cut or self._frame_left(row.dtype)
+            elif short:
+                self._ended = True  # the capture ended inside this block
+        if frames < chunk_size and (frames or not lead):
             with spans.span("iq2a.pad"):
-                pad = np.full_like(group[0][1], 128 if self.step.codec == "pcm_u8" else 0)
-            while len(group) < s:
-                group.append((0, pad))
-            yield group
+                # raw-domain pad value decoding to 0.0: u8 is offset-binary
+                row[2 * frames :] = 128 if self.step.codec == "pcm_u8" else 0
+        return frames
 
-    def _windows(self):
-        """Window-sized batches of groups (``acc_chunks`` chunks)."""
-        batch, count = [], 0
-        for group in self._groups():
-            batch.append(group)
-            count += len(group)
-            if count == self.step.acc_chunks:
-                yield batch
-                batch, count = [], 0
-        if batch:
-            yield batch
+    def _frame_left(self, dtype) -> bool:
+        """Whether the capture holds a frame beyond the spent budget (reads
+        it, as nothing is read after the budget)."""
+        with spans.span("iq2a.read"):
+            return self.reader.read_into(np.empty(2, dtype), 1) > 0
+
+    def _groups(self, uploads: _PinnedRing, device: torch.device):
+        """Stage each dispatch group of ``super_chunks`` rows and start its
+        copy to the device: yields (the device batch, valid frames per row).
+        A group takes its pinned slot first (waiting for the slot's previous
+        copy) and fills its rows in place (:meth:`_fill`); a partial final
+        group ends in silent rows that count nothing (valid = 0)."""
+        frame_bytes = 2 * self.raw_first.itemsize  # an interleaved input frame
+        while not self._ended:
+            with spans.span("iq2a.stage"):
+                host, ui = uploads.next()
+                rows = host.numpy()
+                valid = [self._fill(rows[0], lead=True)]
+                if valid[0]:
+                    valid += [self._fill(row) for row in rows[1:]]
+                    raw_dev = host.to(device, non_blocking=True)
+                    uploads.record(ui)
+                    spans.count("h2d_bytes", host.nbytes)
+                    spans.count("input_bytes", sum(valid) * frame_bytes)
+            if not valid[0]:
+                return  # the capture ended on the previous group's last row
+            yield raw_dev, valid
 
     def _snapshot_chunk(self, state, accs, raw, rs_offset, slot):
         """The first chunk through ``fn_stages``; the snapshots come to the
@@ -886,7 +897,6 @@ class _ChunkLoop:
         decimation = self.decimation
         tracker = self.tracker
         raw_dtype = torch.from_numpy(self.raw_first[:0]).dtype
-        frame_bytes = 2 * self.raw_first.itemsize  # an interleaved input frame
 
         with spans.span("iq2a.alloc"):
             accs = step.init_accs()
@@ -900,6 +910,7 @@ class _ChunkLoop:
             }
         idx = 0  # device-consumed chunks
         pending = None  # (host buffer slot, counts) of a window not yet written
+        window: list = []  # (dec_valid, audio_count) of the open window's chunks
         last_audio: dict = {}
 
         def drain(slot_i, counts):
@@ -924,65 +935,12 @@ class _ChunkLoop:
                         buf=host["audio"], slot=len(counts) - 1, count=counts[-1][1]
                     )
 
-        for wgroups in self._windows():
-            self.check_cancel(f"chunk {idx + 1}")
-            if self.on_drained is not None and pending is not None:
-                drain(*pending)
-                pending = None
-                self.on_drained(state)
-            window = []
-            for group in wgroups:
-                # stage and upload the group (async H2D from pinned memory)
-                with spans.span("iq2a.stage"):
-                    host, ui = uploads.next()
-                    host_np = host.numpy()
-                    for s, (_v, blk) in enumerate(group):
-                        host_np[s] = blk
-                    raw_dev = host.to(device, non_blocking=True)
-                    uploads.record(ui)
-                    spans.count("h2d_bytes", host.nbytes)
-                    spans.count("input_bytes", sum(v for v, _blk in group) * frame_bytes)
-                # exact host bookkeeping (Python ints, no syncs)
-                slot_base = idx % acc_chunks
-                rs_offset = rs_plan.chunk_offset(self.rs_in_device) if resampling else 0
-                group_valid = group_dec = group_audio = 0
-                for valid_frames, _blk in group:
-                    self.processed_samples += valid_frames
-                    dec_total = -(-self.processed_samples // decimation)  # ceil
-                    dec_valid = dec_total - self.dec_emitted
-                    self.dec_emitted = dec_total
-                    if resampling:
-                        audio_count = rs_plan.out_count(self.rs_in_device, dec_valid)
-                        self.rs_in_device += n_dec
-                        self.rs_in_valid += dec_valid
-                    else:
-                        audio_count = 0 if pass_through else dec_valid
-                    self.rs_emitted += audio_count
-                    window.append((dec_valid, audio_count))
-                    group_valid += valid_frames
-                    group_dec += dec_valid
-                    group_audio += audio_count
-                with spans.span("iq2a.step"):
-                    if self.want_stages and idx == 0:
-                        # stage runs dispatch chunk by chunk (super_chunks == 1)
-                        state = self._snapshot_chunk(state, accs, raw_dev[0], rs_offset, slot_base)
-                    elif step.super_chunks > 1:
-                        state = step.fn_super(state, accs, raw_dev, rs_offset, slot_base)
-                    else:
-                        state = step.fn(state, accs, raw_dev[0], rs_offset, slot_base)
-                    spans.count("chunks", len(group))
-                idx += len(group)
-                # progress from the host counters: no device sync
-                tracker.advance("ingest", float(group_valid))
-                tracker.advance("channel", float(group_dec))
-                if dump_iq:
-                    tracker.advance("dump_iq", float(group_dec))
-                tracker.advance("demod", float(group_dec))
-                if not pass_through:
-                    tracker.advance("encode", float(group_audio))
+        def close_window():
+            """Fetch the window (one D2H, queued behind its compute) and
+            write the window before it."""
+            nonlocal pending
             if not self.fetch:
-                continue
-            # one D2H per window, queued behind its compute on the stream
+                return
             with spans.span("iq2a.fetch"):
                 for name, ring in downloads.items():
                     host, di = ring.next()
@@ -992,6 +950,56 @@ class _ChunkLoop:
                 drain(*pending)
             pending = (di, window)
             self.check_cancel(f"chunk {idx} encode")
+
+        for raw_dev, valid in self._groups(uploads, device):
+            if not window:  # a window opens
+                self.check_cancel(f"chunk {idx + 1}")
+                if self.on_drained is not None and pending is not None:
+                    drain(*pending)
+                    pending = None
+                    self.on_drained(state)
+            # exact host bookkeeping (Python ints, no syncs)
+            slot_base = idx % acc_chunks
+            rs_offset = rs_plan.chunk_offset(self.rs_in_device) if resampling else 0
+            group_dec = group_audio = 0
+            for valid_frames in valid:
+                self.processed_samples += valid_frames
+                dec_total = -(-self.processed_samples // decimation)  # ceil
+                dec_valid = dec_total - self.dec_emitted
+                self.dec_emitted = dec_total
+                if resampling:
+                    audio_count = rs_plan.out_count(self.rs_in_device, dec_valid)
+                    self.rs_in_device += n_dec
+                    self.rs_in_valid += dec_valid
+                else:
+                    audio_count = 0 if pass_through else dec_valid
+                self.rs_emitted += audio_count
+                window.append((dec_valid, audio_count))
+                group_dec += dec_valid
+                group_audio += audio_count
+            with spans.span("iq2a.step"):
+                if self.want_stages and idx == 0:
+                    # stage runs dispatch chunk by chunk (super_chunks == 1)
+                    state = self._snapshot_chunk(state, accs, raw_dev[0], rs_offset, slot_base)
+                elif step.super_chunks > 1:
+                    state = step.fn_super(state, accs, raw_dev, rs_offset, slot_base)
+                else:
+                    state = step.fn(state, accs, raw_dev[0], rs_offset, slot_base)
+                spans.count("chunks", len(valid))
+            idx += len(valid)
+            # progress from the host counters: no device sync
+            tracker.advance("ingest", float(sum(valid)))
+            tracker.advance("channel", float(group_dec))
+            if dump_iq:
+                tracker.advance("dump_iq", float(group_dec))
+            tracker.advance("demod", float(group_dec))
+            if not pass_through:
+                tracker.advance("encode", float(group_audio))
+            if len(window) == acc_chunks:
+                close_window()
+                window = []
+        if window:
+            close_window()
         if pending is not None:
             drain(*pending)
         self.dispatched = idx

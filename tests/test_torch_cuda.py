@@ -329,14 +329,25 @@ def test_ddc_apply_on_card_matches_cpu():
     assert torch.equal(outs["cuda"][1], outs["cpu"][1])
 
 
-def test_five_targets_on_card_match_cpu(tmp_path, monkeypatch):
+def _five_targets_card_and_cpu(tmp_path, monkeypatch, seconds):
     """Five NFM targets through the card (O = 10: the tap-block loop runs)
-    and through the CPU's plain path: every WAV within 1 LSB."""
+    and through the CPU's plain path: every WAV within 1 LSB.  Returns the
+    card run's result and its step."""
     _card()
     monkeypatch.setenv("IQ2A_CHANNELIZER", "conv")
+    from iq_to_audio_torch.pipeline import pipeline as tpipeline
+
+    steps = []
+    build = tpipeline.build_chunk_step
+
+    def recording_build(**kw):
+        steps.append(build(**kw))
+        return steps[-1]
+
+    monkeypatch.setattr(tpipeline, "build_chunk_step", recording_build)
     fs = 250_000.0
     offsets = (25_000.0, -40_000.0, 60_000.0, -75_000.0, 95_000.0)
-    n = int(fs * 0.5)
+    n = int(fs * seconds)
     t = np.arange(n) / fs
     iq = np.zeros(n, np.complex128)
     for k, off in enumerate(offsets):
@@ -344,7 +355,7 @@ def test_five_targets_on_card_match_cpu(tmp_path, monkeypatch):
         iq += 0.14 * np.exp(1j * 2 * np.pi * np.cumsum(off + 2_500.0 * audio) / fs)
     path = tmp_path / "baseband_145000000Hz_five.wav"
     write_stereo_wav(path, np.column_stack([iq.real, iq.imag]), int(fs), codec="pcm_s16le")
-    outs = {}
+    outs, results = {}, {}
     for device in ("cuda", "cpu"):
         cfg = ProcessingConfig(
             in_path=path, target_freq=145_000_000.0 + offsets[0],
@@ -352,7 +363,7 @@ def test_five_targets_on_card_match_cpu(tmp_path, monkeypatch):
             output_path=tmp_path / f"five_{device}.wav", chunk_size=65_536, device=device,
         )
         before = tpoly.poly_fir_il.launches
-        result = ProcessingPipeline(cfg).run()
+        results[device] = result = ProcessingPipeline(cfg).run()
         launched = tpoly.poly_fir_il.launches - before
         assert launched == (result.dispatched_chunks if device == "cuda" else 0)
         outs[device] = [read_wav(p)[0][:, 0] for p in result.output_paths]
@@ -360,6 +371,20 @@ def test_five_targets_on_card_match_cpu(tmp_path, monkeypatch):
     for got, want in zip(outs["cuda"], outs["cpu"]):
         assert got.size == want.size
         assert np.abs(got - want).max() <= 1.5 / 32768
+    return results["cuda"], steps[0]
+
+
+def test_five_targets_on_card_match_cpu(tmp_path, monkeypatch):
+    _five_targets_card_and_cpu(tmp_path, monkeypatch, 0.5)
+
+
+def test_five_targets_over_many_upload_groups_match_cpu(tmp_path, monkeypatch):
+    """Each block is read straight into a pinned upload slot while the
+    other slot's copy may be in flight: over six or more groups through
+    the two-slot ring, a slot refilled before its copy ended would show
+    in the WAVs."""
+    result, step = _five_targets_card_and_cpu(tmp_path, monkeypatch, 3.0)
+    assert result.dispatched_chunks // step.super_chunks >= 6
 
 
 # --- the library formulations, the FFT bank and the run modes on the card ---

@@ -24,6 +24,7 @@ from iq_to_audio_tpu.pipeline import step as jstep
 import iq_to_audio_torch as tpkg
 from iq_to_audio_torch.convert import state_from_jax, state_to_jax
 from iq_to_audio_torch.demod import create_decoder
+from iq_to_audio_torch.io.riff import parse_wav_header
 from iq_to_audio_torch.io.writer import read_wav, write_stereo_wav
 from iq_to_audio_torch.ops.ddc import DDCPlan, bandpass_kernel, interleave_kernel
 from iq_to_audio_torch.ops.nco import nco_increment_fixed
@@ -31,7 +32,11 @@ from iq_to_audio_torch.ops.resample import ResamplePlan, design_resampler_kernel
 from iq_to_audio_torch.pipeline import pipeline as tpipeline
 from iq_to_audio_torch.pipeline import step as tstep
 from iq_to_audio_torch.pipeline.benchmark import run_benchmark
-from iq_to_audio_torch.pipeline.filters import compute_decimation, design_channel_filter
+from iq_to_audio_torch.pipeline.filters import (
+    compute_decimation,
+    design_channel_filter,
+    tune_chunk_size,
+)
 from iq_to_audio_torch.ref.chain import RefResampler, ref_demod_chain
 
 torch.set_num_threads(1)
@@ -270,6 +275,131 @@ def test_pipeline_input_windows(tmp_path):
     assert abs(read_wav(out)[0].shape[0] - 100_000 / FS * 48_000) <= 2
     result, _ = run(probe_only=True)
     assert result.mix_sign in (1, -1) and result.audio_peak == 0.0
+
+
+def _loop_chunk_size(requested=32_768):
+    """The chunk the pipeline plans for a 250 kHz NFM run (``_run``'s
+    geometry)."""
+    decim, fs_ch = compute_decimation(FS, 96_000.0)
+    taps = design_channel_filter(FS, 12_500.0, decim)
+    rate = ResamplePlan.create(fs_ch, 48_000.0, 1)
+    return DDCPlan.create(
+        len(taps), decim, target_chunk=tune_chunk_size(FS, requested), out_align=rate.down,
+        max_chunk=1 << 22,
+    ).chunk_size
+
+
+# capture length and budget in chunks; super_chunks the run should choose
+UPLOAD_CASES = {
+    "whole chunks": dict(chunks=4.0, budget=None, codec="pcm_s16le", super_chunks=1),
+    "partial last chunk": dict(chunks=3.4, budget=None, codec="pcm_s16le", super_chunks=1),
+    "budget mid-chunk": dict(chunks=5.0, budget=2.3, codec="pcm_s16le", super_chunks=1),
+    "budget on a chunk's end": dict(chunks=5.0, budget=3.0, codec="pcm_s16le", super_chunks=1),
+    "partial final super-group": dict(chunks=6.5, budget=None, codec="pcm_s16le", super_chunks=2),
+    "raw cu8": dict(chunks=2.6, budget=None, codec="pcm_u8", super_chunks=1),
+}
+
+
+@pytest.mark.parametrize("case", list(UPLOAD_CASES))
+def test_step_receives_the_capture_in_order_padded_with_raw_zero(
+    tmp_path, monkeypatch, caplog, case
+):
+    """Every block after the first is read straight into its upload row:
+    what the step receives, row after row, is the capture's raw frames in
+    order, then the codec's raw zero (the tail of the last used row and
+    every silent row of a partial final group), over three or more groups
+    through the two-slot ring."""
+    spec = UPLOAD_CASES[case]
+    chunk = _loop_chunk_size()
+    n = int(round(spec["chunks"] * chunk))
+    iq = make_nfm_iq(FS, n / FS + 0.01, OFFSET)[:n]
+    if spec["codec"] == "pcm_u8":
+        raw = np.empty(2 * n, np.uint8)
+        raw[0::2] = np.clip(np.round(iq.real * 127 + 128), 0, 255)
+        raw[1::2] = np.clip(np.round(iq.imag * 127 + 128), 0, 255)
+        path = tmp_path / "cap.cu8"
+        raw.tofile(path)
+        zero, extra = 128, dict(center_freq=CENTER, input_sample_rate=FS)
+    else:
+        path = _write_capture(tmp_path, iq)
+        info = parse_wav_header(path)
+        raw = np.fromfile(path, dtype="<i2", offset=info.data_offset)
+        zero, extra = 0, {}
+    assert raw.size == 2 * n
+    budget = None if spec["budget"] is None else int(round(spec["budget"] * chunk))
+
+    seen, steps = [], []
+    build = tpipeline.build_chunk_step
+
+    def recording_build(**kw):
+        step = build(**kw)
+        steps.append(step)
+        fn, fn_super = step.fn, step.fn_super
+
+        def one(state, accs, raw_dev, rs_offset, slot):
+            seen.append(raw_dev.numpy().copy()[None])
+            return fn(state, accs, raw_dev, rs_offset, slot)
+
+        def group(state, accs, raw_dev, rs_offset, slot_base):
+            seen.append(raw_dev.numpy().copy())
+            return fn_super(state, accs, raw_dev, rs_offset, slot_base)
+
+        # fn_super runs its rows through fn: wrap the one the loop calls
+        if step.super_chunks > 1:
+            step.fn_super = group
+        else:
+            step.fn = one
+        return step
+
+    monkeypatch.setattr(tpipeline, "build_chunk_step", recording_build)
+    cfg = tpkg.ProcessingConfig(
+        in_path=path, target_freq=CENTER + OFFSET, output_path=tmp_path / "a.wav",
+        device="cpu", chunk_size=32_768,
+        max_input_seconds=None if budget is None else budget / FS, **extra,
+    )
+    with caplog.at_level("INFO", logger=tpipeline.LOG.name):
+        result = tpkg.ProcessingPipeline(cfg).run()
+    (step,) = steps
+    assert step.chunk_size == chunk and step.super_chunks == spec["super_chunks"]
+    used = n if budget is None else budget
+    assert result.input_samples == used
+    assert len(seen) >= 3  # the ring's two slots are each filled again
+    got = np.concatenate([g.reshape(-1) for g in seen])
+    assert got.size == 2 * chunk * result.dispatched_chunks
+    want = np.full(got.size, zero, raw.dtype)
+    want[: 2 * used] = raw[: 2 * used]
+    np.testing.assert_array_equal(got, want)
+    if case == "partial final super-group":
+        assert (seen[-1][-1] == zero).all()  # a silent row
+    chunks = -(-used // chunk)
+    groups = -(-chunks // step.super_chunks)
+    assert len(seen) == groups and result.dispatched_chunks == groups * step.super_chunks
+    # each budget here stops short of the capture's end, which the run reports
+    assert ("due to preview limit" in caplog.text) == (budget is not None)
+
+
+def test_a_group_that_finds_the_end_is_not_padded():
+    """A capture that ends on a chunk's end leaves the next group's lead row
+    with nothing to read: that row is left as it is (the group is dropped),
+    while a later row of a live group is padded with the raw zero."""
+
+    class Step:
+        chunk_size, codec = 8, "pcm_u8"
+
+    class Ended:
+        def read_into(self, dest, max_frames=None):
+            return 0
+
+    loop = tpipeline._ChunkLoop(
+        Step(), Ended(), np.zeros(16, np.uint8), None, 1, tracker=None, check_cancel=None
+    )
+    loop._first = None  # the warm-up's block went into an earlier group
+    lead = np.full(16, 7, np.uint8)
+    assert loop._fill(lead, lead=True) == 0 and loop._ended
+    assert (lead == 7).all()
+    row = np.full(16, 7, np.uint8)
+    assert loop._fill(row) == 0
+    assert (row == 128).all()
 
 
 def test_default_device_needs_a_card(tmp_path):
