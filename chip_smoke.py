@@ -105,7 +105,6 @@ from iq_to_audio_torch.demod import create_decoder
 from iq_to_audio_torch.io.writer import read_wav, write_stereo_wav
 from iq_to_audio_torch.ops import _cuda_build
 from iq_to_audio_torch.ops.ddc import (
-    MASK32,
     DDCPlan,
     bandpass_kernel,
     bank_from_kernel,
@@ -116,7 +115,11 @@ from iq_to_audio_torch.ops.ddc import (
     j_lanes_kernel,
     shift_matmul_kernel,
 )
-from iq_to_audio_torch.ops.nco import nco_increment_fixed
+from iq_to_audio_torch.ops.nco import (
+    device_increment,
+    nco_increment_fixed,
+    nco_increment_residual,
+)
 from iq_to_audio_torch.ops.osfir import OverlapSavePlan, os_fir_bank
 from iq_to_audio_torch.ops.poly_fir import (
     build_poly_kernel,
@@ -156,6 +159,15 @@ WRAPPERS = {"poly_fir_il": poly_fir_il, "poly_fir_pair": poly_fir_pair}
 FLAGSHIP_M = 161_250
 #: seconds of each run held against the float64 twin
 TWIN_SECONDS = 2.0
+#: s16 steps by which the FFT channelizer's run may differ from the hand
+#: kernel's at any audio sample of the flagship WAV, start-up included.  Their
+#: channel outputs agree to -127 dB, but the unmodulated carrier's filter
+#: start-up passes near zero, where the discriminator turns either run's
+#: rounding into steps at one sample: 36 on an H100, where a one-sample
+#: framing fault reads 2,498.  It is this capture's reading: on other captures
+#: the start-up lands within 2-72 steps or flips by 2*pi (about 7,090), with
+#: the JAX package's uint32 NCO as with the port's (PERF.md, section 6).
+FFT_AUDIO_STEPS = 256
 
 # Data-sheet peaks (dense, no sparsity) by H100 part: FP32 outside the
 # tensor cores and TF32 on them in FLOP/s, and device memory in bytes/s.
@@ -542,8 +554,8 @@ def check_ddc_apply(chunks: int = 6) -> dict:
     L = len(taps)
     plan = DDCPlan(L, decim, FLAGSHIP_M * decim)
     n = plan.chunk_size
-    inc = nco_increment_fixed(OFFSET, SAMPLE_RATE)
-    kernel = bandpass_kernel(taps, [inc])
+    inc, res = nco_increment_fixed(OFFSET, SAMPLE_RATE), nco_increment_residual(OFFSET, SAMPLE_RATE)
+    kernel = bandpass_kernel(taps, [inc], [res])
     poly = build_poly_kernel(kernel, decim)
     rng = np.random.default_rng(77)
     t = np.arange(chunks * n, dtype=np.float64) / SAMPLE_RATE
@@ -555,7 +567,9 @@ def check_ddc_apply(chunks: int = 6) -> dict:
         x = torch.from_numpy(x_np).to(device)
         k = torch.from_numpy(kernel).to(device)
         w = torch.from_numpy(poly).to(device)
-        inc_lo = torch.tensor([(inc * decim) & MASK32], dtype=torch.int64, device=device)
+        inc_lo = torch.tensor(
+            [device_increment(inc, res, decim)], dtype=torch.int64, device=device
+        )
         tail = torch.zeros((2, L - 1), dtype=torch.float32, device=device)
         phase = torch.zeros(1, dtype=torch.int64, device=device)
         parts = []
@@ -657,9 +671,9 @@ def check_batch(channels: int = 5) -> dict:
 
 #: the modes capture: (target offset, tone offset, amplitude).  The SSB
 #: targets sit on the NCO's grid (multiples of 2.5e6 / 2**32 * 2**27 =
-#: 78,125 Hz), where the uint32 increment is exact: off the grid the NCO
-#: runs up to 3e-4 Hz away from the twin's float64 oscillator, and the
-#: demodulated tone's phase drifts from the twin's by -50 dB over 2 s.
+#: 78,125 Hz), where the uint32 increment is exact; off the grid the
+#: pipeline's 62-bit NCO (``ops/nco.py``) mixes at the exact frequency too,
+#: which ``tests/test_torch_ssb_reference.py`` holds to the float64 reference.
 MODE_SIGNALS = {
     "am": (25_000.0, 25_000.0, 0.22),  # 800 Hz tone at 60% modulation
     "usb": (-234_375.0, -233_375.0, 0.15),
@@ -885,15 +899,11 @@ def check_channelizers(label: str, offsets, kernel_row: dict) -> dict:
 
 def twin_ddc(iq: np.ndarray, offset: float, mix_sign: int):
     """The float64 twin's mixed, filtered and decimated streams for one
-    channel.  The twin's oscillator runs at the frequency of the NCO's
-    uint32 increment (the grid frequency next to ``offset``), so that no
-    phase drift between the two oscillators enters the comparison."""
+    channel, mixed at ``offset`` itself, as the pipeline's 62-bit NCO mixes
+    (``ops/nco.py``)."""
     decim, _ = compute_decimation(SAMPLE_RATE, 96_000.0)
     taps = design_channel_filter(SAMPLE_RATE, 12_500.0, decim)
-    inc = nco_increment_fixed(offset, SAMPLE_RATE, sign=mix_sign)
-    signed = inc - (1 << 32) if inc >= (1 << 31) else inc
-    grid_offset = -signed / float(1 << 32) * SAMPLE_RATE
-    mixed = RefOscillator(grid_offset, SAMPLE_RATE).mix(iq, 1)
+    mixed = RefOscillator(offset, SAMPLE_RATE).mix(iq, mix_sign)
     filtered = RefOverlapSaveFIR(taps, 65_536).process(mixed)
     return mixed, filtered, filtered[::decim]
 
@@ -940,20 +950,33 @@ def check_modes_of_run(capture: Path, work: Path) -> dict:
           "audio_byte_identical": audio_identical, "launches": dump_launches,
           "loop_seconds": dumped.loop_seconds})
 
-    # the same run on the FFT channelizer: the hand kernel must not launch
+    # the same run on the FFT channelizer, with its IQ dump: the hand kernel
+    # must not launch, and both its channel output and every sample of its
+    # WAV must agree with the hand kernel's run
+    fft_dump_path = work / "fft_chan.cf32"
     os.environ["IQ2A_CHANNELIZER"] = "fft"
     try:
         fft, fft_launches = run_path(
-            capture, work / "fft.wav", [OFFSET], "nfm", True, hand_kernel=False
+            capture, work / "fft.wav", [OFFSET], "nfm", True, hand_kernel=False,
+            dump_iq_path=fft_dump_path,
         )
     finally:
         del os.environ["IQ2A_CHANNELIZER"]
     a = read_wav(fft.output_paths[0])[0][:, 0]
     b = read_wav(plain.output_paths[0])[0][:, 0]
-    fft_err = error_db(a, b) if a.size == b.size else float("inf")
-    if fft.channelizer != "fft" or not fft_err < -60.0:
-        raise AssertionError(f"fft_pipeline: {fft.channelizer}, {fft_err:.1f} dB against the plain run")
-    emit({"phase": "fft_pipeline", "err_vs_hand_kernel_run_db": fft_err, "launches": fft_launches,
+    same_size = a.size == b.size
+    fft_err = error_db(a, b) if same_size else float("inf")
+    max_steps = float(np.abs(a - b).max()) * 32768 if same_size else float("inf")
+    chan_err = error_db(np.fromfile(fft_dump_path, dtype=np.complex64), dump)
+    if fft.channelizer != "fft" or not (max_steps <= FFT_AUDIO_STEPS and chan_err < -100.0):
+        raise AssertionError(
+            f"fft_pipeline: {fft.channelizer}, audio within {max_steps} s16 steps of the "
+            f"plain run ({fft_err:.1f} dB), channelizer output {chan_err:.1f} dB against "
+            "the hand kernel's"
+        )
+    emit({"phase": "fft_pipeline", "err_vs_hand_kernel_run_db": fft_err,
+          "max_steps_vs_hand_kernel_run": max_steps, "chan_err_vs_hand_kernel_db": chan_err,
+          "launches": fft_launches,
           "dispatched_chunks": fft.dispatched_chunks, "loop_seconds": fft.loop_seconds,
           "hand_kernel_run_loop_seconds": plain.loop_seconds})
     return {"plain": plain, "plain_launches": plain_launches, "plain_bytes": plain_bytes}
@@ -963,17 +986,18 @@ def check_stages(capture: Path) -> dict:
     """``fn_stages`` on chunk 0 of the flagship capture at full width."""
     decim, fs_ch = compute_decimation(SAMPLE_RATE, 96_000.0)
     taps = design_channel_filter(SAMPLE_RATE, 12_500.0, decim)
-    inc = nco_increment_fixed(OFFSET, SAMPLE_RATE)
+    inc, res = nco_increment_fixed(OFFSET, SAMPLE_RATE), nco_increment_residual(OFFSET, SAMPLE_RATE)
     ddc_plan = DDCPlan(len(taps), decim, FLAGSHIP_M * decim)
     n = ddc_plan.chunk_size
     rs_plan = ResamplePlan.create(fs_ch, 48_000.0, ddc_plan.out_size)
     decoder = create_decoder("nfm", deemph_us=300.0, agc_enabled=True)
     decoder.setup(fs_ch)
     step = build_chunk_step(
-        ddc_plan=ddc_plan, rs_plan=rs_plan, ddc_kernel_np=bandpass_kernel(taps, [inc]),
+        ddc_plan=ddc_plan, rs_plan=rs_plan, ddc_kernel_np=bandpass_kernel(taps, [inc], [res]),
         rs_kernel_np=design_resampler_kernel(rs_plan.up, rs_plan.down), incs_fixed=[inc],
-        codec="pcm_s16le", iq_order="iq", decoder=decoder, device=torch.device("cuda"),
-        dump_iq=True, super_chunks=1, want_stages=True, est_total_chunks=6,
+        nco_res=[res], codec="pcm_s16le", iq_order="iq", decoder=decoder,
+        device=torch.device("cuda"), dump_iq=True, super_chunks=1, want_stages=True,
+        est_total_chunks=6,
     )
     frames, _ = read_wav(capture)
     iq = frames[:n, 0].astype(np.float64) + 1j * frames[:n, 1]

@@ -4,8 +4,10 @@ port.
 The JAX state is a pytree of arrays (``ChunkStep.init_state`` there): the
 uint32 NCO ``phase``, the float32 ``fir_tail``, the ``demod`` carries, the
 running ``peak`` and the resampler ``rs_tail``.  The port holds the same
-dict of tensors, with the uint32 phase as an ``int64`` masked to 32 bits
-(torch has no usable uint32 arithmetic).  Both directions are exact.
+dict of tensors, with the phase as the ``int64`` 62-bit phase of its NCO
+(``ops/nco.py``): the uint32 phase shifted up 30 bits.  Both directions
+are exact.  A phase off the uint32 grid (an NCO with increment residuals)
+goes out as its 62 bits in uint64, which only the port reads back.
 
 The walk is over whatever keys the state holds, so the layouts of every
 step mode interchange: the interleaved ``(2(L-1),)`` tail of the FIR
@@ -29,14 +31,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.nco import LOW_BITS, MASK62
+
 
 def state_from_jax(np_state, device) -> dict:
     """Numpy arrays (``jax.tree_util.tree_map(np.asarray, state)``) to
-    tensors on ``device``; uint32 becomes int64."""
+    tensors on ``device``; a uint32 phase becomes the 62-bit one in int64, a
+    uint64 phase is one already."""
     if isinstance(np_state, dict):
         return {k: state_from_jax(v, device) for k, v in np_state.items()}
     arr = np.asarray(np_state)
     if arr.dtype == np.uint32:
+        arr = arr.astype(np.int64) << LOW_BITS
+    elif arr.dtype == np.uint64:
         arr = arr.astype(np.int64)
     elif arr.dtype != np.float32:
         raise TypeError(f"unexpected state dtype {arr.dtype}")
@@ -44,14 +51,17 @@ def state_from_jax(np_state, device) -> dict:
 
 
 def state_to_jax(state) -> dict:
-    """Tensors to numpy arrays in the JAX layout; int64 becomes uint32."""
+    """Tensors to numpy arrays in the JAX layout; the int64 62-bit phase
+    becomes the uint32 one, or stays 62 bits in uint64 off the uint32 grid."""
     if isinstance(state, dict):
         return {k: state_to_jax(v) for k, v in state.items()}
     arr = state.detach().cpu().numpy()
     if arr.dtype == np.int64:
-        if arr.min(initial=0) < 0 or arr.max(initial=0) > 0xFFFFFFFF:
-            raise ValueError("phase outside the uint32 range")
-        return arr.astype(np.uint32)
+        if arr.min(initial=0) < 0 or arr.max(initial=0) > MASK62:
+            raise ValueError("phase outside the 62-bit range")
+        if np.any(arr & ((1 << LOW_BITS) - 1)):
+            return arr.astype(np.uint64)
+        return (arr >> LOW_BITS).astype(np.uint32)
     return arr.copy()
 
 
@@ -86,12 +96,13 @@ def sharded_state_from_jax(np_state: dict, *, dp: int, row: int, captures: int, 
 
 def sharded_state_to_jax(row_states: list[dict], *, captures: int) -> dict:
     """The JAX sharded step's state from the shares of the ``dp`` rows, in
-    row order."""
-    rows = [state_to_jax(s) for s in row_states]
+    row order (joined before the phase's layout is chosen, so that every
+    row's phase goes out in the same one)."""
     out = {}
-    for key in rows[0]:
+    for key in row_states[0]:
+        parts = [s[key].detach().cpu() for s in row_states]
         if key == "fir_tail":
-            out[key] = np.stack([r[key] for r in rows]) if captures > 1 else rows[0][key]
+            out[key] = torch.stack(parts) if captures > 1 else parts[0]
         else:
-            out[key] = np.concatenate([r[key] for r in rows])
-    return out
+            out[key] = torch.cat(parts)
+    return state_to_jax(out)

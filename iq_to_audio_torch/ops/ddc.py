@@ -23,10 +23,12 @@ of the first-chunk snapshots.
 pair (:func:`~iq_to_audio_torch.ops.poly_fir.poly_fir_pair`) when given the
 polyphase tensor, else as a strided ``conv1d`` with TF32 off.
 
-Phase is uint32 fixed point (1 cycle == 2**32 counts).  torch has no usable
-uint32 arithmetic, so the device carries it as ``int64`` masked with
-``& 0xFFFFFFFF``: ``inc_lo * n < 2**50`` for any chunk, so the product is
-exact and the masked value equals the JAX package's uint32 bit for bit.
+Phase is 62-bit fixed point (1 cycle == 2**62 counts, :mod:`.nco`), held
+as ``int64`` in ``[0, 2**62)``.  The JAX package's is uint32: the angle here
+comes from the top 32 bits, rounded as it rounds its uint32 phase, so with
+an increment on the uint32 grid (a zero residual) the oscillator is the JAX
+package's bit for bit.  :func:`nco_advance` splits each product so that no
+int64 intermediate overflows: the phase is exact modular arithmetic.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .nco import LOW_BITS, MASK62, PHASE_BITS, device_increment
 from .poly_fir import poly_fir_il, poly_fir_pair
 
 _TWO32 = 1 << 32
@@ -82,13 +85,17 @@ class DDCPlan:
         return DDCPlan(num_taps=int(num_taps), decimation=d, chunk_size=n)
 
 
-def bandpass_kernel(taps: np.ndarray, incs_fixed: list[int]) -> np.ndarray:
+def bandpass_kernel(
+    taps: np.ndarray, incs_fixed: list[int], residuals: list[int] | None = None
+) -> np.ndarray:
     """Per-channel complex bandpass taps as a pair conv kernel, float32
     ``(2C, 2, L)``: input features (xr, xi), output features
     (yr_0, yi_0, yr_1, yi_1, ...), tap axis reversed (correlation form).
 
-    ``g[j] = h[j] * e^{-j*theta*j}`` with theta from the uint32 fixed-point
-    increment (exact modular phase, float64 trig on the host).
+    ``g[j] = h[j] * e^{-j*theta*j}`` with theta from the device NCO's 62-bit
+    increment (:func:`~.nco.device_increment` of the uint32 ``incs_fixed``
+    and their ``residuals``, zero when not given): exact modular phase,
+    float64 trig on the host.
     """
     taps64 = np.asarray(taps, dtype=np.float64)
     L = taps64.size
@@ -96,8 +103,9 @@ def bandpass_kernel(taps: np.ndarray, incs_fixed: list[int]) -> np.ndarray:
     kernel = np.empty((2 * C, 2, L), dtype=np.float64)
     j = np.arange(L, dtype=np.uint64)
     for c, inc in enumerate(incs_fixed):
-        phase_counts = (np.uint64(inc) * j) % np.uint64(_TWO32)  # exact
-        theta_j = phase_counts.astype(np.float64) * _RAD_PER_COUNT
+        inc62 = np.uint64(device_increment(inc, residuals[c] if residuals else 0))
+        phase62 = (inc62 * j) & np.uint64(MASK62)  # uint64 products wrap mod 2**64
+        theta_j = phase62.astype(np.float64) * (2.0 * np.pi / (1 << PHASE_BITS))
         gr = taps64 * np.cos(theta_j)
         gi = -taps64 * np.sin(theta_j)
         gr_rev, gi_rev = gr[::-1], gi[::-1]
@@ -169,15 +177,27 @@ def shift_matmul_kernel(kernel_il: np.ndarray, decimation: int, j_lanes: int) ->
     return w
 
 
+def nco_advance(phase0: torch.Tensor, inc: torch.Tensor, k: int) -> torch.Tensor:
+    """``(phase0 + inc * k) mod 2**62``, exact: per-channel int64 ``phase0``
+    and ``inc`` in ``[0, 2**62)``, ``0 <= k < 2**30`` steps.  The increment's
+    halves are multiplied apart, so no int64 product overflows."""
+    hi, lo = inc >> LOW_BITS, inc & ((1 << LOW_BITS) - 1)
+    return (phase0 + lo * k + (((hi * k) & MASK32) << LOW_BITS)) & MASK62
+
+
 def lowrate_osc(phase0_fixed: torch.Tensor, inc_lo_fixed: torch.Tensor, m: int):
     """(cos, sin) of the decimated-rate oscillator, shapes ``(..., m)``.
 
     ``phase0_fixed``/``inc_lo_fixed`` are per-channel int64 tensors holding
-    uint32 values; the angle is ``float32(ph) * float32(2*pi / 2**32)``
-    exactly as the JAX package rounds it.
+    62-bit values; the angle is ``float32(ph) * float32(2*pi / 2**32)`` of
+    the top 32 bits ``ph`` of the phase, exactly as the JAX package rounds
+    its uint32 phase.  ``ph`` is summed from the halves of the increment,
+    so no product overflows (``m < 2**30``).
     """
     n = torch.arange(m, dtype=torch.int64, device=phase0_fixed.device)
-    ph = (phase0_fixed[..., None] + inc_lo_fixed[..., None] * n) & MASK32
+    inc = inc_lo_fixed[..., None]
+    hi, lo = inc >> LOW_BITS, inc & ((1 << LOW_BITS) - 1)
+    ph = (hi * n + ((phase0_fixed[..., None] + lo * n) >> LOW_BITS)) & MASK32
     # a fill, not a copy from the host: the call stays capturable in a CUDA graph
     rad = ph.new_full((), _RAD_PER_COUNT, dtype=torch.float32)
     angle = ph.to(torch.float32) * rad
@@ -192,15 +212,14 @@ def mix_and_advance(
     m: int,
 ):
     """Rotate the decimated baseband by the per-channel oscillator and
-    advance the phase by exactly ``m`` low-rate steps (mod 2**32).
+    advance the phase by exactly ``m`` low-rate steps (mod 2**62).
 
     Returns ``(yr, yi, phase_next)``.
     """
     cos, sin = lowrate_osc(phase0_fixed, inc_lo_fixed, m)
     yr = br * cos - bi * sin
     yi = br * sin + bi * cos
-    phase_next = (phase0_fixed + inc_lo_fixed * m) & MASK32
-    return yr, yi, phase_next
+    return yr, yi, nco_advance(phase0_fixed, inc_lo_fixed, m)
 
 
 def _pad_or_trim(x: torch.Tensor, need: int) -> torch.Tensor:
@@ -443,7 +462,7 @@ def ddc_apply(
     kernel: ``(2C, 2, L)`` from :func:`bandpass_kernel`.
     xr, xi: ``(N,)`` input pair (N = plan.chunk_size).
     tail: ``(2, L-1)`` carried input tail (rows: re, im).
-    phase0_fixed, inc_lo_fixed: ``(C,)`` int64 holding uint32 values.
+    phase0_fixed, inc_lo_fixed: ``(C,)`` int64 holding 62-bit values.
     poly_w: optional ``(K, 2D, 2C)`` = ``build_poly_kernel(kernel, D)``: the
         FIR then runs through :func:`~iq_to_audio_torch.ops.poly_fir.poly_fir_pair`
         instead of ``conv1d``.

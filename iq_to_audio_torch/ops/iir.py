@@ -18,15 +18,18 @@ it as a second small triangular matmul over the powers ``(a^B)^(j-i)``
 two folds differ only in f32 rounding order; the tests hold them within
 -100 dB of each other.
 
-Matmuls run in full float32: on CUDA the pipeline asserts that
-``torch.backends.cuda.matmul.allow_tf32`` is False.
+Every function computes in its input's dtype: float32, rounded as the JAX
+package rounds, or float64, in which the SSB decoder runs its DC blocker and
+AGC (``demod/ssb.py``).  Matmuls run in full precision: on CUDA the pipeline
+asserts that ``torch.backends.cuda.matmul.allow_tf32`` is False.
 
 With input-dependent coefficients (:func:`first_order_scan`) the JAX package
 uses ``lax.associative_scan`` over :func:`first_order_combine`; torch has
 none, so the port runs the Hillis-Steele doubling scan over the same
 combine: ``ceil(log2 N)`` rounds of whole-tensor ops, never a loop over
-samples.  The cumprod-and-divide form of the float64 twin would underflow in
-float32 over a chunk (0.999**161_250), so it is not used.
+samples.  A closed form's powers would leave float32's range over a chunk
+(0.999**161_250), so float32 keeps the doubling scan; the float64 AGC, whose
+coefficients take two values, has the closed form of :func:`_agc_gain_f64`.
 """
 
 from __future__ import annotations
@@ -58,25 +61,28 @@ def _block_size(a: float, device: torch.device) -> int:
 
 
 @functools.lru_cache(maxsize=32)
-def _scan_matrices(a: float, blk: int, nb: int, device: str):
+def _scan_matrices(a: float, blk: int, nb: int, device: str, dtype: torch.dtype = torch.float32):
     """Cached device constants: in-block triangle, in-block powers, and the
     cross-block fold triangle with its ``y0`` powers."""
     i = np.arange(blk)
     delta = i[:, None] - i[None, :]
     tri = np.where(delta >= 0, float(a) ** np.maximum(delta, 0), 0.0)
     powers = float(a) ** (i + 1)
-    a_blk = float(np.float32(float(a) ** blk))
+    a_blk = float(a) ** blk
+    if dtype == torch.float32:
+        a_blk = float(np.float32(a_blk))
     j = np.arange(nb)
     dj = j[:, None] - j[None, :]
     with np.errstate(under="ignore"):
         fold = np.where(dj >= 0, a_blk ** np.maximum(dj, 0), 0.0)
         fold_y0 = a_blk ** (j + 1)
-    as_t = functools.partial(torch.tensor, dtype=torch.float32, device=device)
+    ndt = np.float32 if dtype == torch.float32 else np.float64
+    as_t = functools.partial(torch.tensor, dtype=dtype, device=device)
     return (
-        as_t(tri.T.astype(np.float32)),
-        as_t(powers.astype(np.float32)),
-        as_t(fold.T.astype(np.float32)),
-        as_t(fold_y0.astype(np.float32)),
+        as_t(tri.T.astype(ndt)),
+        as_t(powers.astype(ndt)),
+        as_t(fold.T.astype(ndt)),
+        as_t(fold_y0.astype(ndt)),
     )
 
 
@@ -94,9 +100,9 @@ def first_order_scan_const(a: float, b: torch.Tensor, y0: torch.Tensor):
     if pad:
         b = torch.nn.functional.pad(b, (0, pad))
     blocks = b.reshape(*b.shape[:-1], nb, blk)
-    tri_t, powers, fold_t, fold_y0 = _scan_matrices(float(a), blk, nb, str(b.device))
+    tri_t, powers, fold_t, fold_y0 = _scan_matrices(float(a), blk, nb, str(b.device), b.dtype)
     pref = blocks @ tri_t  # (..., nb, blk): the y0-independent part
-    y0 = y0.to(torch.float32)
+    y0 = y0.to(b.dtype)
     # exact y at each block end: ends[j] = sum_{i<=j} a_B^(j-i) p_last[i]
     # + a_B^(j+1) y0
     ends = pref[..., -1] @ fold_t + y0[..., None] * fold_y0
@@ -148,7 +154,7 @@ def first_order_scan(a: torch.Tensor, b: torch.Tensor, y0):
     shape of ``a``/``b``).  Returns ``(y, y_last)``.
     """
     cum_a, cum_b = first_order_prefix(a, b)
-    y0 = torch.as_tensor(y0, dtype=torch.float32, device=b.device)
+    y0 = torch.as_tensor(y0, device=b.device).to(b.dtype)
     y = cum_a * y0[..., None] + cum_b
     return y, y[..., -1]
 
@@ -158,8 +164,8 @@ def dc_blocker(x: torch.Tensor, radius: float, x_prev, y_prev):
 
     Returns ``(y, (x_last, y_last))``.
     """
-    x_prev = torch.as_tensor(x_prev, dtype=torch.float32, device=x.device)
-    y_prev = torch.as_tensor(y_prev, dtype=torch.float32, device=x.device)
+    x_prev = torch.as_tensor(x_prev, device=x.device).to(x.dtype)
+    y_prev = torch.as_tensor(y_prev, device=x.device).to(x.dtype)
     shifted = torch.cat([x_prev[..., None], x[..., :-1]], dim=-1)
     y, y_last = first_order_scan_const(float(radius), x - shifted, y_prev)
     return y, (x[..., -1], y_last)
@@ -167,25 +173,77 @@ def dc_blocker(x: torch.Tensor, radius: float, x_prev, y_prev):
 
 def agc_coefficients(x: torch.Tensor, target: float, decay: float, eps: float = 1e-6):
     """``(a, b)`` of the feedback-AGC recurrence (see :func:`feedback_agc`),
-    rounded as the JAX package rounds them: samples with ``|x| <= eps`` hold
-    the gain (``a = 1``, ``b = 0``)."""
+    in float32 rounded as the JAX package rounds them: samples with
+    ``|x| <= eps`` hold the gain (``a = 1``, ``b = 0``)."""
     mag = x.abs()
-    eps32 = float(np.float32(eps))
-    valid = mag > eps32
-    decay32 = np.float32(decay)
-    keep = float(np.float32(1.0) - decay32)
+    ft = np.float32 if x.dtype == torch.float32 else np.float64
+    eps_t = float(ft(eps))
+    valid = mag > eps_t
+    keep = float(ft(1.0) - ft(decay))
     # a fill, not a copy from the host: the call stays capturable in a CUDA graph
-    pull = mag.new_full((), float(decay32 * np.float32(target)))
-    a = torch.where(valid, keep, 1.0)
-    b = torch.where(valid, pull / torch.clamp(mag, min=eps32), 0.0)
+    pull = mag.new_full((), float(ft(decay) * ft(target)))
+    a = torch.where(valid, mag.new_full((), keep), mag.new_full((), 1.0))
+    b = torch.where(valid, pull / torch.clamp(mag, min=eps_t), mag.new_zeros(()))
     return a, b
+
+
+#: longest block of the float64 AGC gain (:func:`_agc_gain_f64`)
+_AGC_BLOCK = 4096
+
+
+def _agc_gain_f64(x: torch.Tensor, target: float, decay: float, gain0, eps: float):
+    """The feedback AGC's gain in float64 in closed form, ~30 launches where
+    the doubling scan takes ~100.
+
+    Every coefficient ``a`` is ``keep = 1 - decay`` or 1, so the product of
+    the coefficients up to ``n`` is ``keep**c[n]``, ``c`` the running count of
+    samples with ``|x| > eps``.  Per block of ``blk`` samples
+    ``g[n] = keep**c[n] * (g_in + sum_{k<=n} b[k] * keep**-c[k])`` with ``c``
+    counted from the block's start; ``blk`` keeps ``keep**-blk`` below
+    ``e**300``.  The gains entering the blocks are the same recurrence at
+    block rate, one lower-triangular matmul of ``keep**(T[j] - T[i])`` (``T``
+    the counts to each block's end; every power at most 1), ``(nb, nb)`` for
+    ``nb`` blocks: 40 for a chunk of 161,250 samples.  Returns
+    ``(g, g_last)``, or None where ``keep`` is too small for a block of 64.
+    """
+    log_keep = math.log1p(-float(decay)) if decay < 1.0 else -math.inf
+    if not log_keep > -300.0 / 64:
+        return None
+    n = x.shape[-1]
+    blk = _AGC_BLOCK if log_keep == 0.0 else 1 << int(math.log2(-300.0 / log_keep))
+    blk = min(blk, _AGC_BLOCK, n)
+    nb = -(-n // blk)
+    batch = x.shape[:-1]
+    # padded samples are below eps: they hold the gain
+    mag = torch.nn.functional.pad(x.abs(), (0, nb * blk - n)).reshape(*batch, nb, blk)
+    valid = mag > eps
+    b = torch.where(valid, (float(decay) * float(target)) / mag.clamp_min(eps), 0.0)
+    c = valid.to(x.dtype).cumsum(-1)
+    prod = torch.exp(c * log_keep)  # keep**c, in (0, 1]
+    q = torch.cumsum(b / prod, -1)
+    # block rate: h[j] = prod[j, -1] * (h[j-1] + q[j, -1]), h[-1] = g0
+    ends = c[..., -1].cumsum(-1)  # T
+    drive = prod[..., -1] * q[..., -1]
+    w = torch.exp((ends[..., :, None] - ends[..., None, :]).clamp_min(0.0) * log_keep).tril_()
+    g0 = torch.as_tensor(gain0, device=x.device).to(x.dtype).expand(batch)
+    h = (w @ drive[..., None])[..., 0] + torch.exp(ends * log_keep) * g0[..., None]
+    g_in = torch.cat([g0[..., None], h[..., :-1]], dim=-1)
+    g = (prod * (g_in[..., None] + q)).reshape(*batch, nb * blk)[..., :n]
+    return g, h[..., -1]
 
 
 def feedback_agc(x: torch.Tensor, target: float, decay: float, gain0, eps: float = 1e-6):
     """Feedback AGC ``g += decay * (target/|x| - g)`` applied as ``x * g``:
     the gain update comes before the sample is scaled, and samples with
     ``|x| <= eps`` leave it untouched.  The gain is carried across chunks.
-    Returns ``(y, gain_last)``."""
+    Float64 takes the closed form of :func:`_agc_gain_f64`; float32, rounded
+    as the JAX package rounds, the doubling scan (the closed form's powers
+    leave float32's range within a chunk).  Returns ``(y, gain_last)``."""
+    if x.dtype == torch.float64:
+        out = _agc_gain_f64(x, target, decay, gain0, eps)
+        if out is not None:
+            g, g_last = out
+            return x * g, g_last
     a, b = agc_coefficients(x, target, decay, eps)
     g, g_last = first_order_scan(a, b, gain0)
     return x * g, g_last

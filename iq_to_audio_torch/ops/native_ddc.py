@@ -4,7 +4,12 @@ Port of the JAX package's ``ops/native_ddc.py``.  The C++ kernel computes
 the decimated channel samples directly (fused convert, separable-oscillator
 mix, phase-split decimating FIR) and agrees with
 :func:`iq_to_audio_torch.ops.ddc.ddc_apply_il` at the -100 dB level
-(``tests/test_torch_native.py``).  Here it is called through :mod:`ctypes`
+(``tests/test_torch_native.py``).  Its oscillator is the JAX package's
+uint32 one: each chunk starts it at the uint32 phase and increment nearest
+the port's 62-bit ones (:mod:`.nco`), and the decimated output is turned
+the rest of the way by the difference, through the port's own low-rate
+oscillator (:func:`~.ddc.mix_and_advance`).  On the uint32 grid the
+difference is zero and the turn leaves the output as it was, bit for bit.  Here it is called through :mod:`ctypes`
 on the memory of CPU tensors: ``native/ddc.cpp`` alone is compiled (its C
 entry point ``iq2a_ddc_run``; the XLA custom-call wrapper beside it is not
 used), at first use, into ``build/torch_native/``.
@@ -25,7 +30,8 @@ import numpy as np
 import torch
 
 from ..utils.native_build import build_native
-from .ddc import MASK32
+from .ddc import MASK32, mix_and_advance, nco_advance
+from .nco import LOW_BITS, MASK62
 
 LOG = logging.getLogger(__name__)
 
@@ -84,6 +90,11 @@ def available() -> bool:
     return _load() is not None
 
 
+def _nearest_u32(t: torch.Tensor) -> torch.Tensor:
+    """The nearest uint32 phase or increment to a 62-bit one (int64)."""
+    return ((t + (1 << (LOW_BITS - 1))) >> LOW_BITS) & MASK32
+
+
 def _u32(t: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(t.to(torch.int64).numpy().astype(np.uint32))
 
@@ -107,7 +118,7 @@ def ddc_apply_native(
     Drop-in for :func:`~iq_to_audio_torch.ops.ddc.ddc_apply_il` (same
     returns, same carried state: the interleaved scaled float32 tail).
     ``h_rev`` is the reversed real lowpass taps, ``incs`` the per-channel
-    full-rate increments (int64 holding uint32), ``raw`` the UNSCALED
+    full-rate increments (int64 holding 62-bit values), ``raw`` the UNSCALED
     interleaved chunk in its codec's dtype.  CPU tensors only.
     """
     from ..pipeline.step import _device_scale
@@ -129,7 +140,8 @@ def ddc_apply_native(
     tail = itail.to(torch.float32).contiguous()
     h = h_rev.to(torch.float32).contiguous()
     assert raw.numel() == 2 * n and tail.numel() == 2 * (L - 1) and h.numel() == L
-    phase_np, incs_np = _u32(phase0_fixed), _u32(incs)
+    phase32, incs32 = _nearest_u32(phase0_fixed), _nearest_u32(incs)
+    phase_np, incs_np = _u32(phase32), _u32(incs32)
     yr = torch.empty((c, m), dtype=torch.float32)
     yi = torch.empty((c, m), dtype=torch.float32)
     want = int(lib.iq2a_ddc_scratch_floats(n, L, plan.decimation))
@@ -143,6 +155,10 @@ def ddc_apply_native(
     )
     if rc != 0:
         raise RuntimeError("iq2a_ddc_run failed")
-    phase_next = (phase0_fixed + inc_lo_fixed * m) & MASK32
+    # the rest of the way from the kernel's uint32 oscillator to the port's
+    rest0 = (phase0_fixed - (phase32 << LOW_BITS)) & MASK62
+    rest_lo = (inc_lo_fixed - (((incs32 * plan.decimation) & MASK32) << LOW_BITS)) & MASK62
+    yr, yi, _ = mix_and_advance(yr, yi, rest0, rest_lo, m)
+    phase_next = nco_advance(phase0_fixed, inc_lo_fixed, m)
     new_itail = _device_scale(raw[2 * n - 2 * (L - 1) :], codec) if L > 1 else itail
     return yr, yi, new_itail, phase_next

@@ -71,12 +71,11 @@ def build_poly_kernel(conv_kernel: np.ndarray, decimation: int) -> np.ndarray:
     out_ch, in_ch, L = conv_kernel.shape
     D = decimation
     K = (L - 1) // D + 1
-    w = np.zeros((K, in_ch * D, out_ch), dtype=np.float32)
-    for j in range(L):
-        k, p = divmod(j, D)
-        for i in range(in_ch):
-            w[k, i * D + p, :] = conv_kernel[:, i, j]
-    return w
+    # taps padded to K*D with zeros, then (out, in, k, p) -> (k, in*D + p, out)
+    padded = np.zeros((out_ch, in_ch, K * D), dtype=np.float32)
+    padded[:, :, :L] = conv_kernel
+    w = padded.reshape(out_ch, in_ch, K, D).transpose(2, 1, 3, 0)
+    return np.ascontiguousarray(w.reshape(K, in_ch * D, out_ch))
 
 
 def super_taps(k_taps: int) -> int:

@@ -42,7 +42,7 @@ from ..io.probe import probe_sample_rate
 from ..io.reader import IQReader
 from ..io.writer import AudioWriter
 from ..ops.ddc import DDCPlan, bandpass_kernel, interleave_kernel
-from ..ops.nco import nco_increment_fixed
+from ..ops.nco import nco_increment_fixed, nco_increment_residual
 from ..ops.resample import ResamplePlan, design_resampler_kernel
 from ..pipeline.filters import compute_decimation, design_channel_filter
 from ..pipeline.pipeline import ProcessingCancelled
@@ -106,6 +106,7 @@ class DPRun:
     rs_plan: ResamplePlan
     fs_channel: float
     incs: list[int]
+    nco_res: list[int]
     kernel_il: np.ndarray
     rs_kernel: np.ndarray | None
     mode: str
@@ -240,6 +241,11 @@ def plan_captures(
         for g in range(G)
         for off in offsets[g]
     ]
+    nco_res = [
+        nco_increment_residual(off, sample_rate, sign=signs[g])
+        for g in range(G)
+        for off in offsets[g]
+    ]
 
     # --- output paths: fail before any file exists ---------------------------
     outputs: list[list[Path]] = []
@@ -279,7 +285,8 @@ def plan_captures(
         rs_plan=rs_plan,
         fs_channel=fs_channel,
         incs=incs,
-        kernel_il=interleave_kernel(bandpass_kernel(taps, incs), iq_order),
+        nco_res=nco_res,
+        kernel_il=interleave_kernel(bandpass_kernel(taps, incs, nco_res), iq_order),
         rs_kernel=None if rs_plan.identity else design_resampler_kernel(rs_plan.up, rs_plan.down),
         mode=mode,
         # same tau guard as the serial decoder (demod/nfm.py::setup)
@@ -387,7 +394,9 @@ def _run_rank(mesh, run: DPRun, report, cancelled) -> DPResult | str | None:
         captures=G if G > 1 else 1,
     )
     state = init_state()
-    incs, poly_w = local_operands(mesh, run.incs, run.kernel_il, ddc_plan.decimation)
+    inc_lo, poly_w = local_operands(
+        mesh, run.incs, run.kernel_il, ddc_plan.decimation, run.nco_res
+    )
     rs_kernel = None if run.rs_kernel is None else torch.from_numpy(run.rs_kernel).to(device)
     row, shard = mesh.get_local_rank("dp"), mesh.get_local_rank("seq")
     lead = dist.get_rank() == 0
@@ -437,7 +446,7 @@ def _run_rank(mesh, run: DPRun, report, cancelled) -> DPResult | str | None:
                     raw[: blk.size] = blk[: raw.size]
                 rs_offset = 0 if rs_plan.identity else rs_plan.chunk_offset(rs_in)
                 state, audio = fn(
-                    state, torch.from_numpy(raw).to(device), rs_offset, incs, poly_w, rs_kernel
+                    state, torch.from_numpy(raw).to(device), rs_offset, inc_lo, poly_w, rs_kernel
                 )
                 processed += valid
                 dec_total = -(-processed // decimation)

@@ -7,8 +7,8 @@ slices, ``dp`` ranks split the channels (or, with several captures, the
 captures).  Within a chunk,
 
 * the decimated-rate NCO needs **no communication**: each shard derives its
-  starting phase from the carried uint32 phase plus ``inc_lo * offset``
-  (exact modular arithmetic, held in int64 masked to 32 bits);
+  starting phase from the carried phase plus ``inc_lo * offset`` (exact
+  modular arithmetic on the 62-bit phase of :mod:`iq_to_audio_torch.ops.nco`);
 * the decimating bandpass FIR needs a ``2(L-1)``-float **halo** of raw
   interleaved input from the left neighbour, and the discriminator a
   1-sample one.  The JAX package moves them with ``lax.ppermute``; here one
@@ -41,8 +41,9 @@ import torch.distributed as dist
 
 from ..demod.nfm import polar_discriminant
 from ..demod.ssb import AGC_DECAY, AGC_TARGET_DBFS, DC_RADIUS
-from ..ops.ddc import MASK32, DDCPlan, ddc_apply_il
+from ..ops.ddc import DDCPlan, ddc_apply_il, nco_advance
 from ..ops.iir import agc_coefficients, first_order_prefix, first_order_scan_const
+from ..ops.nco import device_increment
 from ..ops.poly_fir import build_poly_kernel
 from ..ops.resample import ResamplePlan, polyphase_resample
 from ..pipeline.step import _device_scale
@@ -156,9 +157,15 @@ def mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
-def local_operands(mesh, incs_fixed: list[int], kernel_il: np.ndarray, decimation: int):
-    """This rank's share of the channel operands: the uint32 increments of
-    its ``dp`` row's channels as int64, and the polyphase taps
+def local_operands(
+    mesh, incs_fixed: list[int], kernel_il: np.ndarray, decimation: int,
+    nco_res: list[int] | None = None,
+):
+    """This rank's share of the channel operands: the NCO's 62-bit
+    increments per output sample of its ``dp`` row's channels, as int64
+    (:func:`~iq_to_audio_torch.ops.nco.device_increment` of the uint32
+    ``incs_fixed`` and their residuals ``nco_res``, zero when not given),
+    and the polyphase taps
     ``build_poly_kernel(kernel_il, 2D)`` cut along the output axis to the
     row's ``2C/dp`` outputs (channel ``c`` owns outputs ``2c, 2c+1``)."""
     dp = _Axis(mesh, "dp")
@@ -166,8 +173,12 @@ def local_operands(mesh, incs_fixed: list[int], kernel_il: np.ndarray, decimatio
     lo = dp.index * c_local
     device = mesh_device(mesh)
     poly = build_poly_kernel(kernel_il, 2 * decimation)[:, :, 2 * lo : 2 * (lo + c_local)]
+    inc_lo = [
+        device_increment(incs_fixed[c], nco_res[c] if nco_res else 0, decimation)
+        for c in range(lo, lo + c_local)
+    ]
     return (
-        torch.tensor(list(incs_fixed[lo : lo + c_local]), dtype=torch.int64, device=device),
+        torch.tensor(inc_lo, dtype=torch.int64, device=device),
         torch.from_numpy(np.ascontiguousarray(poly)).to(device),
     )
 
@@ -198,13 +209,13 @@ def build_sharded_step(
 ):
     """Build this rank's share of the full pipeline step over ``mesh``.
 
-    Returns ``(fn, init_state)`` where ``fn(state, raw, rs_offset, incs,
+    Returns ``(fn, init_state)`` where ``fn(state, raw, rs_offset, inc_lo,
     poly_w, rs_kernel) -> (state, audio)`` runs ``local_step`` on this
     rank's operands:
 
     * ``raw``: its ``seq`` slice (``2N/seq`` raw interleaved samples) of the
       chunk, of its ``dp`` row's capture when ``captures > 1``;
-    * ``incs`` and ``poly_w``: its ``dp`` row's channels, from
+    * ``inc_lo`` and ``poly_w``: its ``dp`` row's channels, from
       :func:`local_operands` (the polyphase repack of the INTERLEAVED-domain
       kernel ``interleave_kernel(bandpass_kernel(...), iq_order)``: the
       ``iq_order`` argument here only documents the convention the caller
@@ -237,18 +248,16 @@ def build_sharded_step(
     device = mesh_device(mesh)
     resample = rs_plan is not None and not rs_plan.identity
 
-    def local_step(state, raw, rs_offset, incs, poly_w, rs_kernel):
+    def local_step(state, raw, rs_offset, inc_lo, poly_w, rs_kernel):
         # the halo and the carried tail stay in the RAW interleaved domain
         # (ops/ddc.py::ddc_apply_il)
         f = _device_scale(raw, codec)
-        inc_lo = (incs * D) & MASK32
-        # the shard's first output sits seq_index * m_local low-rate steps in;
-        # masked after each product, as the uint32 arithmetic wraps
-        phase0 = (state["phase"] + ((inc_lo * (seq_axis.index * m_local)) & MASK32)) & MASK32
+        # the shard's first output sits seq_index * m_local low-rate steps in
+        phase0 = nco_advance(state["phase"], inc_lo, seq_axis.index * m_local)
         halo, fir_tail_next = _left_halo(f, 2 * (L - 1), state["fir_tail"], seq_axis)
         yr, yi, _, _ = ddc_apply_il(local_plan, poly_w, f, halo, phase0, inc_lo)
         new_state = {
-            "phase": (state["phase"] + inc_lo * (N // D)) & MASK32,
+            "phase": nco_advance(state["phase"], inc_lo, N // D),
             "fir_tail": fir_tail_next,
         }
 

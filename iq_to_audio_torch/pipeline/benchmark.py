@@ -69,7 +69,7 @@ def measure_step_resident_msps(
 
     from ..demod import create_decoder
     from ..ops.ddc import DDCPlan, bandpass_kernel
-    from ..ops.nco import nco_increment_fixed
+    from ..ops.nco import nco_increment_fixed, nco_increment_residual
     from ..ops.resample import ResamplePlan, design_resampler_kernel
     from ..utils.device import resolve_device
     from ..utils.device_clock import resident_rate
@@ -89,14 +89,16 @@ def measure_step_resident_msps(
     decoder.setup(fs_ch)
     offsets = [offset_hz, *_spread_channels(0.0, sample_rate, channels)[0]]
     incs = [nco_increment_fixed(o, sample_rate) for o in offsets]
+    nco_res = [nco_increment_residual(o, sample_rate) for o in offsets]
     step = build_chunk_step(
         ddc_plan=ddc_plan,
         rs_plan=rs_plan,
-        ddc_kernel_np=bandpass_kernel(taps, incs),
+        ddc_kernel_np=bandpass_kernel(taps, incs, nco_res),
         rs_kernel_np=(
             None if rs_plan.identity else design_resampler_kernel(rs_plan.up, rs_plan.down)
         ),
         incs_fixed=incs,
+        nco_res=nco_res,
         codec="pcm_s16le",
         iq_order="iq",
         decoder=decoder,

@@ -45,7 +45,7 @@ from ..io.probe import SampleRateProbe, probe_sample_rate
 from ..io.reader import IQReader, convert_to_complex
 from ..io.writer import AudioWriter, IQDebugWriter, IQSliceWriter
 from ..ops.ddc import DDCPlan, bandpass_kernel
-from ..ops.nco import nco_increment_fixed
+from ..ops.nco import nco_increment_fixed, nco_increment_residual
 from ..ops.resample import ResamplePlan, design_resampler_kernel
 from ..ref.chain import choose_mix_sign
 from ..utils import spans
@@ -60,7 +60,7 @@ LOG = logging.getLogger(__name__)
 
 # layout of the port's checkpoint (state as numpy in the JAX package's
 # layout, counters, RMS); bump when it changes
-_CKPT_VERSION = 1
+_CKPT_VERSION = 2
 
 _OUTPUT_RATE = 48_000.0
 _MAX_TARGETS = 5
@@ -558,6 +558,9 @@ class ProcessingPipeline:
 
                 # --- build the device step -----------------------------------
                 incs = [nco_increment_fixed(off, sample_rate, sign=mix_sign) for off in offsets]
+                nco_res = [
+                    nco_increment_residual(off, sample_rate, sign=mix_sign) for off in offsets
+                ]
                 decoder = None
                 if not pass_through:
                     decoder = create_decoder(
@@ -573,7 +576,7 @@ class ProcessingPipeline:
                 step = build_chunk_step(
                     ddc_plan=ddc_plan,
                     rs_plan=rs_plan,
-                    ddc_kernel_np=bandpass_kernel(taps, incs),
+                    ddc_kernel_np=bandpass_kernel(taps, incs, nco_res),
                     rs_kernel_np=(
                         design_resampler_kernel(rs_plan.up, rs_plan.down) if resampling else None
                     ),
@@ -589,6 +592,7 @@ class ProcessingPipeline:
                     want_stages=want_stages,
                     taps_np=np.asarray(taps),
                     fft_size=None if cfg.auto_filter_block else int(cfg.filter_block),
+                    nco_res=nco_res,
                     est_total_chunks=(
                         None if cfg.fixed_device_geometry else (geometry_chunks or None)
                     ),
@@ -615,6 +619,7 @@ class ProcessingPipeline:
                     "mode": cfg.demod_mode.lower(),
                     "agc": cfg.agc_enabled,
                     "incs": tuple(incs),
+                    "nco_res": tuple(nco_res),
                     "codec": input_spec.codec,
                     "iq_order": cfg.iq_order,
                     "acc_chunks": step.acc_chunks,

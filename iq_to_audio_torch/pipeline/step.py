@@ -36,13 +36,13 @@ import torch
 
 from ..demod.base import Decoder
 from ..ops.ddc import (
-    MASK32,
     DDCPlan,
     ddc_apply_fft_il,
     ddc_apply_il,
     ddc_fullrate_stages,
     interleave_kernel,
 )
+from ..ops.nco import MASK62, device_increment
 from ..ops.poly_fir import build_poly_kernel
 from ..ops.resample import ResamplePlan, polyphase_resample
 
@@ -110,6 +110,7 @@ def chunk_step(
     ddc_kernel: torch.Tensor | None = None,
     ddc_kernel_pair: torch.Tensor | None = None,
     os_plan=None,
+    inc_lo: torch.Tensor,
 ) -> dict:
     """One chunk.  Returns the new state; the outputs of the chunk are
     written in place into slot ``slot`` of the accumulators: the s16 audio
@@ -120,14 +121,15 @@ def chunk_step(
 
     ``conv`` filters with ``poly_w``; ``ddc_kernel`` is what the other
     channelizers filter with: the complex bank (``fft``) or the reversed
-    real lowpass taps (``native``).  A ``stages``
+    real lowpass taps (``native``).  ``incs`` and ``inc_lo`` (int64, per
+    channel) are the NCO's 62-bit increments per input sample and per
+    output sample (:mod:`iq_to_audio_torch.ops.nco`).  A ``stages``
     dict asks for the stage snapshots (conv channelizer only) and is filled
     with them: ``input``/``mixed``/``filtered`` at the input rate and
     ``decimated`` at the channel rate as (re, im) pairs, then the
     demodulator's intermediates.
     """
     n, m = ddc_plan.chunk_size, ddc_plan.out_size
-    inc_lo = (incs * ddc_plan.decimation) & MASK32  # exact mod 2**32
     if channelizer in ("native", "fft") and stages is not None:
         raise ValueError(_STAGES_NEED_CONV)
     if channelizer == "native":
@@ -199,7 +201,8 @@ class ChunkStep:
     device: torch.device
     _poly_w: torch.Tensor | None
     _rs_kernel: torch.Tensor | None
-    _incs: torch.Tensor  # int64 holding uint32 increments
+    _incs: torch.Tensor  # int64: the NCO's 62-bit increments per input sample
+    _inc_lo: torch.Tensor  # ... and per output sample
     iq_order: str = "iq"
     pass_through: bool = False
     dump_iq: bool = False
@@ -223,16 +226,15 @@ class ChunkStep:
 
     def init_state(self, start_sample: int = 0) -> dict:
         """Fresh stream state.  The NCO phase at input sample ``n`` is exactly
-        ``inc * n mod 2**32``, so a stream may start at any absolute
+        ``inc * n mod 2**62``, so a stream may start at any absolute
         ``start_sample``; the other carries start at zero."""
         plan, c, dev = self.ddc_plan, self.num_channels, self.device
-        incs_np = self._incs.cpu().numpy().astype(np.uint64)
-        phase0 = (incs_np * np.uint64(start_sample % (1 << 32))) % np.uint64(1 << 32)
+        phase0 = [(int(inc) * start_sample) & MASK62 for inc in self._incs.cpu()]
         # fft carries the (2, L-1) pair tail; conv and native the raw-domain
         # interleaved tail, so their checkpoints interchange
         tail_shape = (2, plan.overlap) if self.channelizer == "fft" else (2 * plan.overlap,)
         state = {
-            "phase": torch.from_numpy(phase0.astype(np.int64)).to(dev),
+            "phase": torch.tensor(phase0, dtype=torch.int64, device=dev),
             "fir_tail": torch.zeros(tail_shape, dtype=torch.float32, device=dev),
         }
         if not self.pass_through:
@@ -265,7 +267,7 @@ class ChunkStep:
             dump_iq=self.dump_iq, stages=stages, channelizer=self.channelizer,
             ddc_kernel=self._ddc_kernel,
             ddc_kernel_pair=self._ddc_kernel_pair if stages is not None else None,
-            os_plan=self.os_plan,
+            os_plan=self.os_plan, inc_lo=self._inc_lo,
         )
 
     def fn(self, state, accs, raw, rs_offset, slot):
@@ -350,6 +352,7 @@ def build_chunk_step(
     taps_np: np.ndarray | None = None,
     channelizer: str | None = None,
     fft_size: int | None = None,
+    nco_res: list[int] | None = None,
 ) -> ChunkStep:
     """Geometry (8-chunk accumulation windows split into dispatch groups,
     as the JAX package sizes them for accelerators) and device constants.
@@ -359,8 +362,13 @@ def build_chunk_step(
     choose the native channelizer.  ``channelizer`` pins what
     :func:`choose_channelizer` would read from the environment;
     ``fft_size`` pins the ``fft`` channelizer's FFT size (else the
-    overlap-save planner picks it)."""
+    overlap-save planner picks it).  ``nco_res`` are the uint32
+    increments' residuals
+    (:func:`~iq_to_audio_torch.ops.nco.nco_increment_residual`), zero when
+    not given: the NCO runs at :func:`~iq_to_audio_torch.ops.nco.device_increment`
+    of each pair, as the bandpass taps of ``ddc_kernel_np`` should turn."""
     c = len(incs_fixed)
+    pairs = list(zip(incs_fixed, nco_res or [0] * c))
     per_chunk = 0
     if not pass_through:
         cap = (
@@ -442,7 +450,13 @@ def build_chunk_step(
             if rs_kernel_np is not None
             else None
         ),
-        _incs=torch.tensor(list(incs_fixed), dtype=torch.int64, device=device),
+        _incs=torch.tensor(
+            [device_increment(*p) for p in pairs], dtype=torch.int64, device=device
+        ),
+        _inc_lo=torch.tensor(
+            [device_increment(*p, ddc_plan.decimation) for p in pairs], dtype=torch.int64,
+            device=device,
+        ),
         iq_order=iq_order,
         pass_through=pass_through,
         dump_iq=dump_iq,

@@ -52,9 +52,11 @@ def _both(form, plan, incs, kil, f, itail, phase):
         jnp.asarray(phase.astype(np.uint32)), jnp.asarray(inc_lo),
         j_lanes=j, **{k: jnp.asarray(v) for k, v in kw.items()},
     )
+    # the port's phase is 62-bit: the uint32 one shifted up 30 bits (ops/nco.py)
     got = tddc.ddc_apply_il(
         plan, None, torch.from_numpy(f), torch.from_numpy(itail),
-        torch.from_numpy(phase.astype(np.int64)), torch.from_numpy(inc_lo.astype(np.int64)),
+        torch.from_numpy(phase.astype(np.int64) << 30),
+        torch.from_numpy(inc_lo.astype(np.int64) << 30),
         kernel_il=torch.from_numpy(kil), j_lanes=j,
         **{k: torch.from_numpy(v) for k, v in kw.items()},
     )
@@ -77,7 +79,7 @@ def test_formulation_matches_jax(form, decim, offsets, order):
     assert error_db(got[0].numpy(), np.asarray(want[0])) < -100.0
     assert error_db(got[1].numpy(), np.asarray(want[1])) < -100.0
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
-    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]).astype(np.int64))
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]).astype(np.int64) << 30)
 
 
 @pytest.mark.parametrize("form", FORMS + ["poly"])
@@ -91,8 +93,8 @@ def test_formulations_agree_and_chunked_equals_whole(form):
     assert whole.chunk_size == 3 * n
     rng = np.random.default_rng(11)
     f = torch.from_numpy((rng.standard_normal(6 * n) * 0.3).astype(np.float32))
-    inc_lo = torch.tensor([(i * decim) % (1 << 32) for i in incs], dtype=torch.int64)
-    phase0 = torch.tensor([123456, 7], dtype=torch.int64)
+    inc_lo = torch.tensor([(i * decim) % (1 << 32) << 30 for i in incs], dtype=torch.int64)
+    phase0 = torch.tensor([123456 << 30, 7], dtype=torch.int64)
 
     def run(p, x, tail, phase, which):
         from iq_to_audio_torch.ops.poly_fir import build_poly_kernel
@@ -144,8 +146,8 @@ def test_fullrate_stages_match_jax(decim, offsets):
     )
     got = tddc.ddc_fullrate_stages(
         plan, torch.from_numpy(kernel_np), torch.from_numpy(xr), torch.from_numpy(xi),
-        torch.from_numpy(tail), torch.from_numpy(phase.astype(np.int64)),
-        torch.from_numpy(incs_np.astype(np.int64)),
+        torch.from_numpy(tail), torch.from_numpy(phase.astype(np.int64) << 30),
+        torch.from_numpy(incs_np.astype(np.int64) << 30),
     )
     for g, w, name in zip(got, want, ("mixed_r", "mixed_i", "filtered_r", "filtered_i")):
         assert g.shape == (len(incs), n), name
@@ -156,10 +158,10 @@ def test_fullrate_stages_match_jax(decim, offsets):
     f[0::2], f[1::2] = xr, xi
     itail = np.empty(2 * (L - 1), np.float32)
     itail[0::2], itail[1::2] = tail
-    inc_lo = torch.tensor([(i * decim) % (1 << 32) for i in incs], dtype=torch.int64)
+    inc_lo = torch.tensor([(i * decim) % (1 << 32) << 30 for i in incs], dtype=torch.int64)
     yr, yi, _, _ = tddc.ddc_apply_il(
         plan, None, torch.from_numpy(f), torch.from_numpy(itail),
-        torch.from_numpy(phase.astype(np.int64)), inc_lo, kernel_il=torch.from_numpy(kil),
+        torch.from_numpy(phase.astype(np.int64) << 30), inc_lo, kernel_il=torch.from_numpy(kil),
     )
     assert error_db(got[2][:, ::decim].numpy(), yr.numpy()) < -100.0
     assert error_db(got[3][:, ::decim].numpy(), yi.numpy()) < -100.0

@@ -20,7 +20,7 @@ from iq_to_audio_torch.io.writer import read_wav, write_stereo_wav
 from iq_to_audio_torch.ops import poly_fir as tpoly
 from iq_to_audio_torch.ops import ddc as tddc
 from iq_to_audio_torch.ops.ddc import bandpass_kernel, interleave_kernel
-from iq_to_audio_torch.ops.nco import nco_increment_fixed
+from iq_to_audio_torch.ops.nco import device_increment, nco_increment_fixed
 from iq_to_audio_torch.pipeline.filters import design_channel_filter
 
 pytestmark = pytest.mark.cuda
@@ -310,8 +310,8 @@ def test_ddc_apply_on_card_matches_cpu():
     x, w, kernel = _pair_inputs((25_000.0, -40_000.0), 2 * 4_000)
     taps_len = kernel.shape[-1]
     plan = tddc.DDCPlan(taps_len, 26, 26 * 4_000)
-    incs = torch.tensor([nco_increment_fixed(o, FS) for o in (25_000.0, -40_000.0)])
-    inc_lo = (incs * 26) & tddc.MASK32
+    incs = [nco_increment_fixed(o, FS) for o in (25_000.0, -40_000.0)]
+    inc_lo = torch.tensor([device_increment(i, 0, 26) for i in incs])
     outs = {}
     for device in (dev, torch.device("cpu")):
         tail = x[:, : taps_len - 1].to(device)
@@ -438,8 +438,8 @@ def test_fullrate_stages_on_card_match_cpu():
     rng = np.random.default_rng(9)
     xr, xi = torch.from_numpy(rng.uniform(-1, 1, (2, n)).astype(np.float32))
     tail = torch.from_numpy(rng.uniform(-1, 1, (2, L - 1)).astype(np.float32))
-    phase = torch.tensor([12345, 4_000_000_000], dtype=torch.int64)
-    inc_t = torch.tensor(incs, dtype=torch.int64)
+    phase = torch.tensor([12345 << 30, 4_000_000_000 << 30], dtype=torch.int64)
+    inc_t = torch.tensor([device_increment(i) for i in incs], dtype=torch.int64)
     plan = tddc.DDCPlan(L, decim, n)
     outs = {}
     for device in (dev, torch.device("cpu")):

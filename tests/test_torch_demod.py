@@ -226,8 +226,14 @@ def test_ssb_agc_tracks_target(tmp_path):
 @pytest.mark.parametrize("mode,agc", [("am", True), ("usb", False), ("usb", True)])
 def test_pipeline_matches_jax_wav(tmp_path, monkeypatch, mode, agc):
     """The same s16 capture through both packages: WAVs within 1 LSB, or
-    within ``AGC_WAV_DB`` with the SSB AGC on."""
+    within ``AGC_WAV_DB`` with the SSB AGC on.  The port runs the JAX
+    package's uint32 NCO here, without its increment residual
+    (``ops/nco.py``), which ``test_torch_ssb_reference.py`` holds to the
+    float64 reference."""
     monkeypatch.setenv("IQ2A_CHANNELIZER", "conv")
+    monkeypatch.setattr(
+        "iq_to_audio_torch.pipeline.pipeline.nco_increment_residual", lambda *a, **k: 0
+    )
     path = _write_capture(tmp_path, SIGNALS[mode](0.6), codec="pcm_s16le")
     outs = []
     for pkg, extra in ((jpkg, {}), (tpkg, {"device": "cpu"})):

@@ -121,3 +121,64 @@ def test_feedback_agc_chunked_equals_whole():
         y, g = tiir.feedback_agc(torch.from_numpy(x[:, s : s + 1_024]), TARGET, 0.001, g)
         parts.append(y.numpy())
     assert error_db(np.concatenate(parts, axis=-1), whole.numpy()) < -90.0
+
+
+def _agc_loop(x, gain, decay, eps=1e-6):
+    """The upstream's AGC, one sample at a time, in float64."""
+    out = np.empty_like(x, dtype=np.float64)
+    for i, s in enumerate(np.asarray(x, np.float64)):
+        m = abs(s)
+        if m > eps:
+            gain += decay * (TARGET / m - gain)
+        out[i] = s * gain
+    return out, gain
+
+
+@pytest.mark.parametrize(
+    "n,decay",
+    [(2, 0.001), (4_095, 0.001), (4_097, 0.001), (20_001, 0.001), (20_001, 0.3), (9_000, 0.0)],
+)
+def test_float64_agc_closed_form_matches_loop(n, decay):
+    """The float64 AGC (closed form in blocks: 4,096 samples at decay 0.001,
+    256 at 0.3) against the per-sample loop, silent samples holding the gain."""
+    rng = np.random.default_rng(n)
+    x = rng.normal(size=n) * 0.05
+    x[::97] = 0.0
+    x[1::89] = 1e-6
+    x[n // 3 : n // 3 + 700] = 0.0
+    expected, g_end = _agc_loop(x, 1.0, decay)
+    out, g_last = tiir.feedback_agc(torch.from_numpy(x), TARGET, decay, 1.0)
+    assert out.dtype == torch.float64
+    assert error_db(out.numpy(), expected) < -250.0
+    assert abs(float(g_last) / g_end - 1.0) < 1e-12
+
+
+def test_float64_agc_batched_chunked_equals_whole():
+    """Five channels with their own carried gains, whole against chunks of
+    sizes that cut the blocks anywhere, and against the doubling scan."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(size=(5, 161_250)) * 0.05)
+    g0 = torch.tensor([1.0, 0.5, 2.0, 1.0, 0.1])
+    whole, g_whole = tiir.feedback_agc(x, TARGET, 0.001, g0)
+    g, parts = g0, []
+    for s in range(0, x.shape[-1], 40_000):
+        y, g = tiir.feedback_agc(x[:, s : s + 40_000], TARGET, 0.001, g)
+        parts.append(y)
+    assert error_db(torch.cat(parts, -1).numpy(), whole.numpy()) < -250.0
+    assert torch.allclose(g, g_whole, rtol=1e-12, atol=0.0)
+    a, b = tiir.agc_coefficients(x, TARGET, 0.001)
+    gd, _ = tiir.first_order_scan(a, b, g0.double())
+    assert error_db(whole.numpy(), (x * gd).numpy()) < -250.0
+    expected, _ = _agc_loop(x[2].numpy(), 2.0, 0.001)
+    assert error_db(whole[2].numpy(), expected) < -250.0
+
+
+def test_float64_agc_fast_decay_takes_the_doubling_scan():
+    """A decay whose keep**64 would leave the closed form's range falls back
+    to the doubling scan, which still matches the loop."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=3_000) * 0.05
+    assert tiir._agc_gain_f64(torch.from_numpy(x), TARGET, 0.995, 1.0, 1e-6) is None
+    out, _ = tiir.feedback_agc(torch.from_numpy(x), TARGET, 0.995, 1.0)
+    expected, _ = _agc_loop(x, 1.0, 0.995)
+    assert error_db(out.numpy(), expected) < -250.0

@@ -19,6 +19,7 @@ from iq_to_audio_torch.io import reader as treader
 from iq_to_audio_torch.io import writer as twriter
 from iq_to_audio_torch.ops import ddc as tddc
 from iq_to_audio_torch.ops import native_ddc as tnative
+from iq_to_audio_torch.ops.nco import device_increment, nco_increment_residual
 from iq_to_audio_torch.pipeline.filters import design_channel_filter
 from iq_to_audio_torch.pipeline.step import _device_scale
 from iq_to_audio_torch.utils import native_build
@@ -48,18 +49,28 @@ def _setup(decim, offsets, rate=FS, taps=None, target_chunk=12_288):
     return np.asarray(taps), plan, incs
 
 
-def _native(plan, taps, incs, raw, itail, phase, codec, order):
-    inc_lo = torch.tensor([(i * plan.decimation) % (1 << 32) for i in incs], dtype=torch.int64)
+def _incs62(plan, incs, res):
+    """The 62-bit increments per input and per output sample (``ops/nco.py``)
+    of uint32 ``incs`` with residuals ``res`` (zero when None)."""
+    pairs = list(zip(incs, res or [0] * len(incs)))
+    full = [device_increment(*p) for p in pairs]
+    lo = [device_increment(*p, plan.decimation) for p in pairs]
+    return torch.tensor(full, dtype=torch.int64), torch.tensor(lo, dtype=torch.int64)
+
+
+def _native(plan, taps, incs, raw, itail, phase, codec, order, res=None):
+    """``phase`` is the 62-bit phase (int64)."""
+    full, inc_lo = _incs62(plan, incs, res)
     h_rev = torch.from_numpy(np.ascontiguousarray(taps.astype(np.float32)[::-1]))
     return tnative.ddc_apply_native(
-        plan, h_rev, torch.tensor(incs, dtype=torch.int64), torch.from_numpy(raw),
+        plan, h_rev, full, torch.from_numpy(raw),
         torch.from_numpy(itail), torch.from_numpy(phase), inc_lo, codec, order,
     )
 
 
-def _conv(plan, taps, incs, raw, itail, phase, codec, order):
-    inc_lo = torch.tensor([(i * plan.decimation) % (1 << 32) for i in incs], dtype=torch.int64)
-    kil = tddc.interleave_kernel(tddc.bandpass_kernel(taps, incs), order)
+def _conv(plan, taps, incs, raw, itail, phase, codec, order, res=None):
+    _, inc_lo = _incs62(plan, incs, res)
+    kil = tddc.interleave_kernel(tddc.bandpass_kernel(taps, incs, res), order)
     return tddc.ddc_apply_il(
         plan, None, _device_scale(torch.from_numpy(raw), codec), torch.from_numpy(itail),
         torch.from_numpy(phase), inc_lo, kernel_il=torch.from_numpy(kil),
@@ -83,7 +94,7 @@ def test_native_matches_conv(codec, order):
     rng = np.random.default_rng(5)
     raw = _raw(rng, codec, 2 * plan.chunk_size)
     itail = (rng.standard_normal(2 * (L - 1)) * 0.2).astype(np.float32)
-    phase = np.asarray([123456, 4_000_000_000], np.int64)
+    phase = np.asarray([123456, 4_000_000_000], np.int64) << 30
     got = _native(plan, taps, incs, raw, itail, phase, codec, order)
     want = _conv(plan, taps, incs, raw, itail, phase, codec, order)
     assert got[0].shape == (2, plan.out_size)
@@ -104,7 +115,7 @@ def test_native_transpose_fill_decims(decim, order):
     rng = np.random.default_rng(decim)
     raw = _raw(rng, "pcm_s16le", 2 * plan.chunk_size)
     itail = (rng.standard_normal(2 * (len(taps) - 1)) * 0.2).astype(np.float32)
-    phase = np.asarray([456789], np.int64)
+    phase = np.asarray([456789], np.int64) << 30
     got = _native(plan, taps, incs, raw, itail, phase, "pcm_s16le", order)
     want = _conv(plan, taps, incs, raw, itail, phase, "pcm_s16le", order)
     assert error_db(got[0].numpy(), want[0].numpy()) < -100.0
@@ -121,7 +132,7 @@ def test_native_chunked_equals_whole(decim):
     rng = np.random.default_rng(26)
     raw = _raw(rng, "pcm_s16le", 6 * n)
     itail0 = np.zeros(2 * (L - 1), np.float32)
-    phase0 = np.asarray([31337], np.int64)
+    phase0 = np.asarray([31337], np.int64) << 30
     yr_w, yi_w, tail_w, ph_w = _native(whole, taps, incs, raw, itail0, phase0, "pcm_s16le", "iq")
     tail, ph, parts = itail0, phase0, []
     for i in range(3):
@@ -134,6 +145,34 @@ def test_native_chunked_equals_whole(decim):
     assert error_db(torch.cat([p[1] for p in parts], -1).numpy(), yi_w.numpy()) < -100.0
     np.testing.assert_array_equal(tail, tail_w.numpy())
     np.testing.assert_array_equal(ph, ph_w.numpy())
+
+
+@pytest.mark.parametrize("order", ["iq", "qi_inv"])
+def test_native_turns_onto_the_exact_nco(order):
+    """Off the uint32 grid the kernel mixes at the nearest uint32 increment
+    and the output is turned the rest of the way: over chunks it stays with
+    the conv branch, whose taps turn at the exact frequency."""
+    rate = 250_000.0
+    offsets = (25_000.0, -61_037.3)
+    # 2 s chunks: the uint32 increments alone turn the channels 0.29 and 0.25
+    # mrad off the exact mix by a chunk's end (-75.5 and -76.6 dB over it)
+    taps, plan, incs = _setup(26, offsets, rate=rate, target_chunk=500_000)
+    res = [nco_increment_residual(-o, rate) for o in offsets]  # _setup's sign
+    assert all(res)
+    rng = np.random.default_rng(8)
+    n = plan.chunk_size
+    raw = _raw(rng, "pcm_s16le", 6 * n)
+    tails = [np.zeros(2 * (L - 1), np.float32)] * 2
+    phases = [np.asarray([5 << 40, (1 << 62) - 7], np.int64)] * 2
+    for i in range(3):
+        chunk = raw[2 * i * n : 2 * (i + 1) * n]
+        got = _native(plan, taps, incs, chunk, tails[0], phases[0], "pcm_s16le", order, res)
+        want = _conv(plan, taps, incs, chunk, tails[1], phases[1], "pcm_s16le", order, res)
+        assert error_db(got[0].numpy(), want[0].numpy()) < -100.0
+        assert error_db(got[1].numpy(), want[1].numpy()) < -100.0
+        assert torch.equal(got[3], want[3])
+        tails = [got[2].numpy(), want[2].numpy()]
+        phases = [got[3].numpy(), want[3].numpy()]
 
 
 def test_native_refuses_wrong_dtype():

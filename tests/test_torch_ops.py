@@ -185,8 +185,9 @@ def test_mix_and_advance_phase_exact():
     incs = np.asarray([3_000_000_001, 12_345, 4_294_967_295], np.uint64)
     inc_lo = ((incs * np.uint64(26)) % np.uint64(1 << 32)).astype(np.uint32)
     phase_j = jnp.asarray(np.asarray([0, 4_000_000_000, 17], np.uint32))
-    phase_t = torch.from_numpy(np.asarray(phase_j).astype(np.int64))
-    inc_t = torch.from_numpy(inc_lo.astype(np.int64))
+    # the port's phase is 62-bit: the uint32 one shifted up 30 bits (ops/nco.py)
+    phase_t = torch.from_numpy(np.asarray(phase_j).astype(np.int64) << 30)
+    inc_t = torch.from_numpy(inc_lo.astype(np.int64) << 30)
     for _ in range(5):
         br = rng.standard_normal((3, m)).astype(np.float32)
         bi = rng.standard_normal((3, m)).astype(np.float32)
@@ -196,7 +197,7 @@ def test_mix_and_advance_phase_exact():
         yrt, yit, phase_t = tddc.mix_and_advance(
             torch.from_numpy(br), torch.from_numpy(bi), phase_t, inc_t, m
         )
-        np.testing.assert_array_equal(phase_t.numpy(), np.asarray(phase_j).astype(np.int64))
+        np.testing.assert_array_equal(phase_t.numpy(), np.asarray(phase_j).astype(np.int64) << 30)
         assert error_db(yrt.numpy(), np.asarray(yrj)) < -100.0
         assert error_db(yit.numpy(), np.asarray(yij)) < -100.0
 
@@ -232,14 +233,14 @@ def test_ddc_apply_matches_jax_conv(decim, offsets, poly):
     poly_w = torch.from_numpy(tpoly.build_poly_kernel(kernel, decim)) if poly else None
     yrt, yit, tailt, pht = tddc.ddc_apply(
         plan, torch.from_numpy(kernel), torch.from_numpy(x[0]), torch.from_numpy(x[1]),
-        torch.from_numpy(tail), torch.from_numpy(phase.astype(np.int64)),
-        torch.from_numpy(inc_lo.astype(np.int64)), poly_w=poly_w,
+        torch.from_numpy(tail), torch.from_numpy(phase.astype(np.int64) << 30),
+        torch.from_numpy(inc_lo.astype(np.int64) << 30), poly_w=poly_w,
     )
     assert yrt.shape == (len(offsets), plan.out_size)
     assert error_db(yrt.numpy(), np.asarray(yrj)) < -100.0
     assert error_db(yit.numpy(), np.asarray(yij)) < -100.0
     np.testing.assert_array_equal(tailt.numpy(), np.asarray(tailj))
-    np.testing.assert_array_equal(pht.numpy(), np.asarray(phj).astype(np.int64))
+    np.testing.assert_array_equal(pht.numpy(), np.asarray(phj).astype(np.int64) << 30)
 
 
 @pytest.mark.parametrize("poly", [False, True])
@@ -267,3 +268,17 @@ def test_ddc_apply_chunked_equals_whole(poly):
     assert error_db(torch.cat(parts_r, -1).numpy(), wr.numpy()) < -100.0
     assert error_db(torch.cat(parts_i, -1).numpy(), wi.numpy()) < -100.0
     assert torch.equal(tail_t, wtail) and torch.equal(ph_t, wph)
+
+
+@pytest.mark.parametrize(
+    "out_ch,in_ch,taps,decim",
+    [(10, 2, 7_143, 52), (2, 2, 1_601, 52), (10, 2, 7_150, 260), (6, 1, 27, 26), (4, 2, 1, 3)],
+)
+def test_build_poly_kernel_bit_identical_to_jax(out_ch, in_ch, taps, decim):
+    """The repack is pure data movement: every tap lands where the JAX
+    package's per-tap loop puts it, at the SSB channelizer's K = 275 too."""
+    rng = np.random.default_rng(taps)
+    conv = rng.normal(size=(out_ch, in_ch, taps))
+    w = tpoly.build_poly_kernel(conv, decim)
+    assert w.dtype == np.float32 and w.flags["C_CONTIGUOUS"]
+    np.testing.assert_array_equal(w, jpallas.build_poly_kernel(conv, decim))

@@ -207,15 +207,17 @@ def test_ddc_apply_fft_il_matches_jax_and_conv(order, D, cpu_tuned):
         jplan, jos, jnp.asarray(bank), jnp.asarray(f), jnp.asarray(tail),
         jnp.asarray(phase.astype(np.uint32)), jnp.asarray(inc_lo), order,
     )
+    # the port's phase is 62-bit: the uint32 one shifted up 30 bits (ops/nco.py)
+    phase62, inc_lo62 = phase.astype(np.int64) << 30, inc_lo.astype(np.int64) << 30
     got = tddc.ddc_apply_fft_il(
         plan, os_plan, torch.from_numpy(bank), torch.from_numpy(f), torch.from_numpy(tail),
-        torch.from_numpy(phase.astype(np.int64)), torch.from_numpy(inc_lo.astype(np.int64)), order,
+        torch.from_numpy(phase62), torch.from_numpy(inc_lo62), order,
     )
     assert error_db(got[0].numpy(), np.asarray(want[0])) < -100.0
     assert error_db(got[1].numpy(), np.asarray(want[1])) < -100.0
     assert got[2].shape == (2, L - 1)
     assert np.array_equal(got[2].numpy(), np.asarray(want[2]))
-    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]).astype(np.int64))
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]).astype(np.int64) << 30)
     # the conv branch on the same stream: the interleaved form of the pair tail
     tr, ti = tail
     if order.endswith("_inv"):
@@ -225,7 +227,7 @@ def test_ddc_apply_fft_il_matches_jax_and_conv(order, D, cpu_tuned):
     itail[0::2], itail[1::2] = pair
     conv = tddc.ddc_apply_il(
         plan, None, torch.from_numpy(f), torch.from_numpy(itail),
-        torch.from_numpy(phase.astype(np.int64)), torch.from_numpy(inc_lo.astype(np.int64)),
+        torch.from_numpy(phase62), torch.from_numpy(inc_lo62),
         kernel_il=torch.from_numpy(tddc.interleave_kernel(kernel_np, order)),
     )
     assert error_db(got[0].numpy(), conv[0].numpy()) < -60.0
@@ -244,8 +246,8 @@ def test_ddc_apply_fft_matches_jax_chunked_equals_whole(D, cpu_tuned):
     tail_j = jnp.zeros((2, L - 1), jnp.float32)
     ph_j = jnp.asarray(np.asarray([123456, 99], np.uint32))
     tail_t = torch.zeros((2, L - 1))
-    ph_t = torch.tensor([123456, 99], dtype=torch.int64)
-    inc_t = torch.from_numpy(inc_lo.astype(np.int64))
+    ph_t = torch.tensor([123456 << 30, 99 << 30], dtype=torch.int64)
+    inc_t = torch.from_numpy(inc_lo.astype(np.int64) << 30)
     bank_t = torch.from_numpy(bank)
     parts = []
     for i in range(3):
@@ -261,7 +263,7 @@ def test_ddc_apply_fft_matches_jax_chunked_equals_whole(D, cpu_tuned):
         assert error_db(yr.numpy(), np.asarray(yr_j)) < -100.0
         assert error_db(yi.numpy(), np.asarray(yi_j)) < -100.0
         np.testing.assert_array_equal(tail_t.numpy(), np.asarray(tail_j))
-        np.testing.assert_array_equal(ph_t.numpy(), np.asarray(ph_j).astype(np.int64))
+        np.testing.assert_array_equal(ph_t.numpy(), np.asarray(ph_j).astype(np.int64) << 30)
         parts.append((yr, yi))
     whole_plan = tddc.DDCPlan.create(L, D, target_chunk=3 * n)
     assert whole_plan.chunk_size == 3 * n
@@ -269,7 +271,7 @@ def test_ddc_apply_fft_matches_jax_chunked_equals_whole(D, cpu_tuned):
     bank_w = torch.from_numpy(tddc.bank_from_kernel(kernel_np, whole_os))
     yr_w, yi_w, _, ph_w = tddc.ddc_apply_fft(
         whole_plan, whole_os, bank_w, torch.from_numpy(x[0]), torch.from_numpy(x[1]),
-        torch.zeros((2, L - 1)), torch.tensor([123456, 99], dtype=torch.int64), inc_t,
+        torch.zeros((2, L - 1)), torch.tensor([123456 << 30, 99 << 30], dtype=torch.int64), inc_t,
     )
     assert error_db(torch.cat([p[0] for p in parts], -1).numpy(), yr_w.numpy()) < -100.0
     assert error_db(torch.cat([p[1] for p in parts], -1).numpy(), yi_w.numpy()) < -100.0

@@ -32,6 +32,17 @@ def _write_capture(tmp_path, iq, codec="pcm_s16le"):
     return path
 
 
+@pytest.fixture
+def jax_nco(monkeypatch):
+    """The port's NCO without its increment residual (``ops/nco.py``): the
+    JAX package's uint32 NCO, so that the two packages mix alike.  The
+    residual is held to the float64 reference in
+    ``test_torch_ssb_reference.py``."""
+    monkeypatch.setattr(
+        "iq_to_audio_torch.pipeline.pipeline.nco_increment_residual", lambda *a, **k: 0
+    )
+
+
 def _run(pkg, path, out, **kw):
     extra = {"device": "cpu"} if pkg is tpkg else {}
     cfg = pkg.ProcessingConfig(
@@ -42,7 +53,7 @@ def _run(pkg, path, out, **kw):
 
 
 @pytest.mark.parametrize("channelizer", ["conv", "fft", ""])
-def test_pass_through_slice_matches_jax(tmp_path, monkeypatch, channelizer):
+def test_pass_through_slice_matches_jax(tmp_path, monkeypatch, jax_nco, channelizer):
     """``demod_mode="none"``: container and codec preserved, the frame count
     exact, the slice equal to the JAX package's within one s16 step."""
     monkeypatch.setenv("IQ2A_CHANNELIZER", channelizer)
@@ -93,7 +104,7 @@ def test_raw_pass_through_keeps_codec(tmp_path):
     assert out.stat().st_size == 8 * (-(-iq.size // result.decimation))
 
 
-def test_dump_iq_and_audio_match_jax(tmp_path, monkeypatch):
+def test_dump_iq_and_audio_match_jax(tmp_path, monkeypatch, jax_nco):
     monkeypatch.setenv("IQ2A_CHANNELIZER", "conv")
     iq = make_nfm_iq(FS, 0.6, OFFSET)
     path = _write_capture(tmp_path, iq)

@@ -266,3 +266,35 @@ def test_profile_dir_trace_carries_the_loop_spans_and_none_stay(capture, tmp_pat
     names = {str(e.get("name", "")) for e in events}
     assert {"iq2a.loop", "iq2a.stage", "iq2a.step", "iq2a.drain", "iq2a.write"} <= names
     assert spans.records() == []
+
+
+@pytest.mark.parametrize("mode", ["usb", "lsb", "nfm"])
+def test_the_ssb_chain_is_one_span_per_chunk_inside_the_step(capture, tmp_path, mode):
+    """``iq2a.ssb`` wraps the SSB decoder's chain once per chunk, inside the
+    step's enqueue, with no counters; other modes record none; recording
+    changes no output byte."""
+
+    def run(out):
+        cfg = tpkg.ProcessingConfig(
+            in_path=capture, target_freq=CENTER + 25_000.0, output_path=out, device="cpu",
+            chunk_size=32_768, demod_mode=mode, extra_target_freqs=[CENTER - 40_000.0],
+        )
+        return tpkg.ProcessingPipeline(cfg).run()
+
+    plain = run(tmp_path / "off.wav")
+    assert spans.records() == []
+    with recording():
+        traced = run(tmp_path / "on.wav")
+    recs = spans.records()
+    ssb = [r for r in recs if r.name == "iq2a.ssb"]
+    steps = {i for i, r in enumerate(recs) if r.name == "iq2a.step"}
+    chunks = sum(r.counters.get("chunks", 0) for r in recs)
+    assert chunks == traced.dispatched_chunks > 1
+    if mode == "nfm":
+        assert ssb == []
+    else:
+        assert len(ssb) == chunks
+        assert all(r.parent in steps and not r.counters for r in ssb)
+    assert len(traced.output_paths) == len(plain.output_paths) == 2
+    for on, off in zip(traced.output_paths, plain.output_paths):
+        assert on.read_bytes() == off.read_bytes()

@@ -222,6 +222,7 @@ def test_stage_snapshots_need_conv(monkeypatch, channelizer):
             step.init_state(), step.init_accs(), raw, 0, 0, step._incs, None, step._rs_kernel,
             ddc_plan=plan, rs_plan=rs_plan, decoder=dec, codec="pcm_s16le", stages={},
             channelizer=channelizer, ddc_kernel=step._ddc_kernel, os_plan=step.os_plan,
+            inc_lo=step._inc_lo,
         )
 
 
