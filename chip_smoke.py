@@ -8,8 +8,12 @@ script exits non-zero:
 1. the card's name and power limit (``nvidia-smi``);
 2. build every hand-written kernel from ``iq_to_audio_torch/csrc`` (one
    ``nvcc`` per source, all started together);
-3. hold each kernel against its plain torch version on the card at the
-   main paths' shapes (< -100 dB, and two identical launches bit for bit),
+3. the mixer-sign probe (``csrc/mix_probe.cu``) on NFM and USB warm-up
+   blocks (1,601 and 7,143 taps) against the host's float64 twin: the same
+   sign, powers within 1e-10 relative, 20 calls bit for bit alike; its
+   call and bound times beside the twin's;
+   then hold each channelizer kernel against its plain torch version on
+   the card at the main paths' shapes (< -100 dB, and two identical launches bit for bit),
    and time the kernel, the plain version and the one PyTorch call that
    computes the same function (``conv1d``), beside the port's two other
    library formulations of it (the shifted dense matmul on cuBLAS, the
@@ -71,7 +75,8 @@ script exits non-zero:
    through the hand kernel and the spliced audio must agree with the plain
    run and the twin (< -60 dB); the device stream alone; and the executor's
    resident-compute probe of the kernel;
-8. the device time of one ``chunk_step`` at one and at five channels (CUDA
+8. the device time of the mixer-sign probe's kernels (``torch.profiler``),
+   the device time of one ``chunk_step`` at one and at five channels (CUDA
    events, then ``torch.profiler`` for the busy time) beside the kernel's
    share of it, and last a run with ``profile_dir`` (its trace must hold
    one device event of the hand kernel per chunk dispatched): these come
@@ -104,6 +109,12 @@ from iq_to_audio_torch.analysis import compute_psd, streaming_waterfall
 from iq_to_audio_torch.demod import create_decoder
 from iq_to_audio_torch.io.writer import read_wav, write_stereo_wav
 from iq_to_audio_torch.ops import _cuda_build
+from iq_to_audio_torch.ops.mix_probe import (
+    choose_tile,
+    mix_sign_powers,
+    mix_sign_powers_plain,
+    probe_geometry,
+)
 from iq_to_audio_torch.ops.ddc import (
     DDCPlan,
     bandpass_kernel,
@@ -142,6 +153,8 @@ from iq_to_audio_torch.ref.chain import (
     RefOscillator,
     RefOverlapSaveFIR,
     RefResampler,
+    mix_sign_powers as twin_mix_sign_powers,
+    pick_mix_sign,
     ref_demod_chain,
 )
 
@@ -152,9 +165,13 @@ SECONDS = 10.0
 #: length of the capture of the mode and resume paths (three flagship chunks)
 MODES_SECONDS = 5.0
 #: hand-written CUDA sources built by this script (csrc/<name>.cu)
-SOURCES = ("poly_fir",)
+SOURCES = ("poly_fir", "mix_probe")
 #: every kernel wrapper, with its launch count
-WRAPPERS = {"poly_fir_il": poly_fir_il, "poly_fir_pair": poly_fir_pair}
+WRAPPERS = {
+    "poly_fir_il": poly_fir_il,
+    "poly_fir_pair": poly_fir_pair,
+    "mix_sign_powers": mix_sign_powers,
+}
 #: decimated outputs of the flagship 4,192,500-sample chunk
 FLAGSHIP_M = 161_250
 #: seconds of each run held against the float64 twin
@@ -176,6 +193,8 @@ _PEAKS = {
     "NVL": (60e12, 417.5e12, 3.9e12),
     "SXM": (67e12, 495e12, 3.35e12),
 }
+#: float64 outside the tensor cores, FLOP/s, by H100 part (the mixer-sign probe's peak)
+_FP64_PEAKS = {"PCIe": 25.6e12, "NVL": 30e12, "SXM": 34e12}
 
 
 _T0 = time.perf_counter()
@@ -338,6 +357,101 @@ def check_poly_fir(label: str, bandwidth: float, offsets, peaks, layout: str = "
         "gflop": flops / 1e9,
         "mbytes": nbytes / 1e6,
         **formulations,
+    }
+    emit(row)
+    return row
+
+
+def check_mix_probe(peaks, mode: str, carrier: int) -> dict:
+    """The mixer-sign probe (``csrc/mix_probe.cu``) on one 2.5 MS/s s16 warm-up
+    block against the host twin: the same sign, both powers within 1e-10
+    relative, 20 calls bit for bit alike; then its host times: the wrapper's
+    wall per call (upload, two launches, the copy back of two doubles), the
+    twin's and the plain form's (CPU).  Its device time comes later
+    (:func:`time_mix_probe`), with the other profiled phases."""
+    bandwidth = {"nfm": 12_500.0, "usb": 2_800.0}[mode]
+    offset = 175_000.0
+    decim, _ = compute_decimation(SAMPLE_RATE, 96_000.0)
+    taps = design_channel_filter(SAMPLE_RATE, bandwidth, decim)
+    rng = np.random.default_rng([len(taps), carrier + 1])
+    n = 140_000
+    iq = 0.05 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    if carrier:
+        iq += 0.4 * np.exp(2j * np.pi * carrier * offset * np.arange(n) / SAMPLE_RATE)
+    raw = np.round(np.column_stack([iq.real, iq.imag]).reshape(-1) * 32767.0).astype(np.int16)
+    warm = (raw.astype(np.float32) * np.float32(1.0 / 32768.0)).view(np.complex64)
+    dev = torch.device("cuda")
+    args = (warm, SAMPLE_RATE, offset, taps, decim)
+
+    def timed(fn, calls):
+        walls = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            out = fn()
+            walls.append(time.perf_counter() - t0)
+        return out, 1e3 * float(np.median(walls))
+
+    reset_counts()
+    got = mix_sign_powers(*args, dev)
+    runs = {mix_sign_powers(*args, dev) for _ in range(20)}
+    want, twin_ms = timed(lambda: twin_mix_sign_powers(*args), 3)
+    plain, plain_ms = timed(lambda: mix_sign_powers_plain(*args), 3)
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    if runs != {got} or pick_mix_sign(got) != pick_mix_sign(want) or not rel <= 1e-10:
+        raise AssertionError(f"mix probe {mode} {carrier:+d}: {got} against the twin's {want}")
+    if carrier and pick_mix_sign(got) != carrier:
+        raise AssertionError(f"mix probe {mode} {carrier:+d}: sign {pick_mix_sign(got)}")
+    if read_counts()["mix_sign_powers"] != 21:
+        raise AssertionError(f"mix probe: {read_counts()} launches for 21 calls")
+    _, call_ms = timed(lambda: mix_sign_powers(*args, dev), 20)
+    n_snip, _, k, first = probe_geometry(warm.size, SAMPLE_RATE, len(taps), decim)
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    m, tc = choose_tile(k - first, len(taps), decim, sm_count)
+    fp64 = _FP64_PEAKS[peaks[3]]
+    flops = 2.0 * (k - first) * len(taps) * 4.0
+    nbytes = 8.0 * (n_snip + len(taps)) + 16.0
+    t_ops, t_bytes = flops / fp64, nbytes / peaks[2]
+    row = {
+        "phase": "mix_probe",
+        "mode": mode,
+        "carrier": carrier,
+        "taps": len(taps),
+        "snippet": n_snip,
+        "outputs_per_sign": k - first,
+        "tile": [m, tc],
+        "powers": list(got),
+        "twin_powers": list(want),
+        "plain_powers": list(plain),
+        "max_rel_err": rel,
+        "sign": pick_mix_sign(got),
+        "bit_identical_20": True,
+        "call_ms": call_ms,
+        "twin_ms": twin_ms,
+        "plain_cpu_ms": plain_ms,
+        "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "float64 operations" if t_ops >= t_bytes else "bytes",
+        "fp64_flops": fp64,
+    }
+    emit(row)
+    return {**row, "args": args}
+
+
+def time_mix_probe(probe: dict) -> dict:
+    """The device time of one :func:`check_mix_probe` call under the
+    profiler: its two kernels, and everything the call puts on the card."""
+    args = probe["args"]
+    busy_ms, top = step_device_time(
+        lambda: mix_sign_powers(*args, torch.device("cuda")), steps=10
+    )
+    kernel_ms = sum(v for k, v in top.items() if "mix_probe" in k)
+    row = {
+        "phase": "mix_probe_time",
+        "mode": probe["mode"],
+        "taps": probe["taps"],
+        "kernel_ms": kernel_ms if kernel_ms > 0 else None,
+        "device_busy_ms": busy_ms,
+        "top_device_ops_ms": top,
+        "bound_ms": probe["bound_ms"],
     }
     emit(row)
     return row
@@ -511,6 +625,8 @@ def check_end_to_end() -> dict:
                 f"poly_fir_il launched {launches} times for "
                 f"2 x {results['dispatched_chunks']} dispatched chunks"
             )
+        if launches["mix_sign_powers"] != 2:  # one mixer-sign probe a pass
+            raise AssertionError(f"mix_sign_powers launched {launches} times for 2 passes")
         audio, rate = read_wav(results["output_path"])
         audio = audio[:, 0]
         if rate != 48_000 or abs(audio.size - SECONDS * 48_000) > 2:
@@ -1602,6 +1718,7 @@ def main() -> int:
           "cuda": torch.version.cuda, "peak_part": peaks[3],
           "fp32_flops": peaks[0], "tf32_flops": peaks[1], "mem_bytes_per_s": peaks[2]})
     build_all()
+    probes = [check_mix_probe(peaks, mode, c) for mode in ("nfm", "usb") for c in (1, -1, 0)]
     flagship = check_poly_fir("flagship C=1", 12_500.0, (OFFSET,), peaks)
     check_poly_fir("C=2", 12_500.0, (OFFSET, -40_000.0), peaks)
     five = [OFFSET, 175_000.0, -350_000.0, 525_000.0, -700_000.0]
@@ -1638,6 +1755,7 @@ def main() -> int:
         check_spectrum(capture)
         resident = check_resident()
         burst = check_burst(capture, work, runs, resident)
+        probe_times = {p["mode"]: time_mix_probe(p) for p in probes if p["carrier"] == 1}
         time_chunk_step(1, flagship)
         time_chunk_step(5, batch)
         check_profile(capture, work, runs["plain_bytes"])
@@ -1663,6 +1781,17 @@ def main() -> int:
             "poly_fir_pair", "iq_to_audio_tpu/ops/pallas_ddc.py:313",
             stream["launches"]["poly_fir_pair"], pair,
         ),
+        {
+            "name": "mix_sign_powers",
+            "route": "cuda",
+            "source": "iq_to_audio_torch/csrc/mix_probe.cu",
+            "replaces": "none: the host's float64 probe, iq_to_audio_torch/ref/chain.py",
+            "launches": e2e["launches"]["mix_sign_powers"],
+            "max_rel_err": max(p["max_rel_err"] for p in probes),
+            **{f"{p['mode']}_{k}": p[k] for p in probes if p["carrier"] == 1
+               for k in ("call_ms", "twin_ms", "bound_ms")},
+            **{f"{mode}_kernel_ms": t["kernel_ms"] for mode, t in probe_times.items()},
+        },
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

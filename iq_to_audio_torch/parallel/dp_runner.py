@@ -42,12 +42,12 @@ from ..io.probe import probe_sample_rate
 from ..io.reader import IQReader
 from ..io.writer import AudioWriter
 from ..ops.ddc import DDCPlan, bandpass_kernel, interleave_kernel
+from ..ops.mix_probe import choose_mix_sign_on
 from ..ops.nco import nco_increment_fixed, nco_increment_residual
 from ..ops.resample import ResamplePlan, design_resampler_kernel
 from ..pipeline.filters import compute_decimation, design_channel_filter
 from ..pipeline.pipeline import ProcessingCancelled
 from ..pipeline.progress import PhaseState, ProgressSink, ProgressTracker
-from ..ref.chain import choose_mix_sign
 from ..utils.device import resolve_device
 from ..utils.freq import detect_center_frequency
 from .launch import DEFAULT_TIMEOUT, run_world
@@ -219,7 +219,7 @@ def plan_captures(
     check_geometry(dp, seq, G * K, ddc_plan, G)
     offsets = [[f - c for f in job.target_freqs] for job, c in zip(jobs, centers)]
 
-    # --- per-capture mixer sign (host float64 probe) -------------------------
+    # --- per-capture mixer sign (the float64 probe on the run's device) -----
     chunk = ddc_plan.chunk_size
     probe_len = min(chunk, max(int(sample_rate * 0.05), 4 * len(taps), 131_072))
     signs = []
@@ -235,7 +235,9 @@ def plan_captures(
             warm = r.read_block()
         if warm is None or warm.size == 0:
             raise ValueError(f"Input {job.in_path} contains no samples.")
-        signs.append(choose_mix_sign(warm, sample_rate, offsets[g][0], taps, decimation))
+        signs.append(choose_mix_sign_on(
+            resolve_device(device), warm, sample_rate, offsets[g][0], taps, decimation
+        ))
     incs = [
         nco_increment_fixed(off, sample_rate, sign=signs[g])
         for g in range(G)

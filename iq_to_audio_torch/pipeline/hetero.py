@@ -59,9 +59,9 @@ from ..io.probe import SampleRateProbe, probe_sample_rate
 from ..io.reader import IQReader, convert_to_complex
 from ..ops import _cuda_build
 from ..ops.ddc import DDCPlan, ddc_apply_il
+from ..ops.mix_probe import choose_mix_sign_on
 from ..ops.poly_fir import build_poly_kernel
 from ..ops.resample import ResamplePlan
-from ..ref.chain import choose_mix_sign
 from ..utils.device import resolve_device
 from ..utils.device_clock import resident_rate
 from ..utils.freq import detect_center_frequency
@@ -193,7 +193,9 @@ def _plan(config: ProcessingConfig, n_segments: int,
             if raw is None:
                 raise ValueError(f"Input {config.in_path} contains no samples.")
             warm = convert_to_complex(raw, spec.codec, config.iq_order)
-            mix_sign = choose_mix_sign(warm, sample_rate, offset, taps, decimation)
+            mix_sign = choose_mix_sign_on(
+                resolve_device(config.device), warm, sample_rate, offset, taps, decimation
+            )
 
     if warm_seconds is None:
         # mode-aware lead-in (segmented.warm_seconds_for): NFM/AM converge

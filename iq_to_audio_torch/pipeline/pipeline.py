@@ -45,9 +45,10 @@ from ..io.probe import SampleRateProbe, probe_sample_rate
 from ..io.reader import IQReader, convert_to_complex
 from ..io.writer import AudioWriter, IQDebugWriter, IQSliceWriter
 from ..ops.ddc import DDCPlan, bandpass_kernel
+from ..ops.mix_probe import choose_mix_sign_on
 from ..ops.nco import nco_increment_fixed, nco_increment_residual
 from ..ops.resample import ResamplePlan, design_resampler_kernel
-from ..ref.chain import choose_mix_sign
+from ..ref.chain import mix_probe_len
 from ..utils import spans
 from ..utils.device import resolve_device
 from ..utils.freq import detect_center_frequency
@@ -495,14 +496,13 @@ class ProcessingPipeline:
                 elif cfg.mix_sign_override in (1, -1):
                     mix_sign = cfg.mix_sign_override
                 else:
-                    probe_len = min(
-                        raw_first.size // 2,
-                        max(int(sample_rate * 0.05), len(taps) * 4, 131_072),
-                    )
+                    probe_len = mix_probe_len(raw_first.size // 2, sample_rate, len(taps))
                     warm = convert_to_complex(
                         raw_first[: 2 * probe_len], input_spec.codec, cfg.iq_order
                     )
-                    mix_sign = choose_mix_sign(warm, sample_rate, freq_offset, taps, decimation)
+                    mix_sign = choose_mix_sign_on(
+                        device, warm, sample_rate, freq_offset, taps, decimation
+                    )
             LOG.info("Selected mixer sign %d based on warm-up snippet.", mix_sign)
             check_cancel("warm-up")
             if cfg.probe_only:

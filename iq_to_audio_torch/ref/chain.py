@@ -291,30 +291,34 @@ def ref_demod_chain(
     return np.asarray(audio, dtype=np.float64), fs_channel
 
 
-def choose_mix_sign(
+def mix_probe_len(n_warm: int, sample_rate: float, n_taps: int) -> int:
+    """Samples of the warm-up block the mixer-sign probe reads."""
+    max_len = max(int(sample_rate * 0.05), n_taps * 4, 131_072)
+    snippet_len = min(n_warm, max_len)
+    if snippet_len < n_taps:
+        snippet_len = min(n_warm, n_taps * 2)
+    return snippet_len
+
+
+def mix_sign_powers(
     warmup: np.ndarray,
     sample_rate: float,
     freq_offset: float,
     taps: np.ndarray,
     decimation: int,
-) -> int:
-    """Warm-up mixer-sign probe (reference ``processing.py:623-663``).
-
-    Runs on the host twin so the device step compiles exactly once per run
-    (the sign becomes a plain Python constant folded into the NCO increment).
-    """
+) -> tuple[float, float]:
+    """Mean power of the filtered, decimated warm-up snippet mixed by
+    ``exp(-j*s*2*pi*f*n/fs)`` for ``s = +1`` and ``s = -1`` (reference
+    ``processing.py:623-663``); ``-inf`` for an empty warm-up."""
     if warmup.size == 0:
-        return 1
-    max_len = max(int(sample_rate * 0.05), len(taps) * 4, 131_072)
-    snippet_len = min(warmup.size, max_len)
-    if snippet_len < len(taps):
-        snippet_len = min(warmup.size, len(taps) * 2)
+        return -np.inf, -np.inf
+    snippet_len = mix_probe_len(warmup.size, sample_rate, len(taps))
     snippet = np.asarray(warmup[:snippet_len], dtype=np.complex128)
     n = np.arange(snippet.size, dtype=np.float64)
     decim = max(decimation, 1)
     block_size = min(snippet.size, max(len(taps), 16_384))
 
-    best_sign, best_power = 1, -np.inf
+    powers = []
     for sign in (1, -1):
         osc = np.exp(-1j * sign * 2.0 * np.pi * freq_offset * n / sample_rate)
         fir = RefOverlapSaveFIR(taps, block_size)
@@ -327,6 +331,31 @@ def choose_mix_sign(
             if useful.size == 0:
                 useful = decimated
             power = float(np.mean(np.abs(useful) ** 2))
+        powers.append(power)
+    return powers[0], powers[1]
+
+
+def pick_mix_sign(powers: tuple[float, float]) -> int:
+    """The sign of the larger of the powers at ``+1`` and ``-1``: a strict
+    ``>``, so ``+1`` wins a tie."""
+    best_sign, best_power = 1, -np.inf
+    for sign, power in zip((1, -1), powers):
         if power > best_power:
             best_power, best_sign = power, sign
     return best_sign
+
+
+def choose_mix_sign(
+    warmup: np.ndarray,
+    sample_rate: float,
+    freq_offset: float,
+    taps: np.ndarray,
+    decimation: int,
+) -> int:
+    """Warm-up mixer-sign probe (reference ``processing.py:623-663``).
+
+    The host path of the probe: the run's sign on a CPU device, and the
+    float64 reference that ``ops/mix_probe.py``'s kernel, which decides the
+    sign on a CUDA device, is held to.
+    """
+    return pick_mix_sign(mix_sign_powers(warmup, sample_rate, freq_offset, taps, decimation))

@@ -15,13 +15,20 @@ import numpy as np
 import pytest
 import torch
 
+from mix_probe_cases import CODECS, DECIMATION, OFFSET, taps, warm_block
+from mix_probe_cases import FS as PROBE_FS
+
 from iq_to_audio_torch import ProcessingConfig, ProcessingPipeline
 from iq_to_audio_torch.io.writer import read_wav, write_stereo_wav
+from iq_to_audio_torch.ops import mix_probe
 from iq_to_audio_torch.ops import poly_fir as tpoly
 from iq_to_audio_torch.ops import ddc as tddc
 from iq_to_audio_torch.ops.ddc import bandpass_kernel, interleave_kernel
 from iq_to_audio_torch.ops.nco import device_increment, nco_increment_fixed
+from iq_to_audio_torch.pipeline import pipeline as tpipeline
 from iq_to_audio_torch.pipeline.filters import design_channel_filter
+from iq_to_audio_torch.ref.chain import choose_mix_sign, mix_sign_powers, pick_mix_sign
+from iq_to_audio_torch.utils import spans
 
 pytestmark = pytest.mark.cuda
 
@@ -692,3 +699,123 @@ def test_uncapturable_work_is_timed_by_the_profiler():
     assert out["method"] == "profiler_busy" and out["msps"] > 0
     again = resident_rate(lambda _i: x.mul_(1.0), x.numel(), dev, calls=2, seconds_target=0.01)
     assert again["method"] == "cuda_graph" and again["msps"] > 0
+
+
+# --- the mixer-sign probe, csrc/mix_probe.cu ----------------------------------
+
+
+def _probe_on_card(warm, h, dev):
+    before = mix_probe.mix_sign_powers.launches
+    got = mix_probe.mix_sign_powers(warm, PROBE_FS, OFFSET, h, DECIMATION, dev)
+    return got, mix_probe.mix_sign_powers.launches - before
+
+
+def _agree_1e10(got, want) -> None:
+    assert np.allclose(got, want, rtol=1e-10, atol=0.0), (got, want)
+
+
+@pytest.mark.parametrize("carrier", [1, -1, 0], ids=["plus", "minus", "noise"])
+@pytest.mark.parametrize("codec", CODECS)
+@pytest.mark.parametrize("mode", ["nfm", "usb"])
+def test_mix_probe_matches_twin(mode, codec, carrier):
+    """The kernel's float64 powers against the host twin's on the CPU
+    tests' seeds: 1e-10 relative, the same sign, one launch."""
+    dev = _card()
+    h = taps(mode)
+    warm = warm_block(codec, carrier, seed=len(h) + carrier)
+    got, launched = _probe_on_card(warm, h, dev)
+    _agree_1e10(got, mix_sign_powers(warm, PROBE_FS, OFFSET, h, DECIMATION))
+    assert pick_mix_sign(got) == choose_mix_sign(warm, PROBE_FS, OFFSET, h, DECIMATION)
+    assert launched == 1
+
+
+@pytest.mark.parametrize(
+    "samples,zero", [(1_000, False), (DECIMATION - 3, False), (20_000, True), (0, False)],
+    ids=["shorter_than_taps", "under_one_step", "all_zero", "empty"],
+)
+def test_mix_probe_edges_on_card(samples, zero):
+    dev = _card()
+    h = taps("nfm")
+    warm = warm_block("pcm_s16le", 1, seed=3, samples=max(samples, 1))[:samples]
+    if zero:
+        warm = np.zeros_like(warm)
+    got, launched = _probe_on_card(warm, h, dev)
+    _agree_1e10(got, mix_sign_powers(warm, PROBE_FS, OFFSET, h, DECIMATION))
+    assert pick_mix_sign(got) == choose_mix_sign(warm, PROBE_FS, OFFSET, h, DECIMATION)
+    assert launched == (samples > 0)
+
+
+@pytest.mark.parametrize("m,tc", [(1, 7_143), (7, 1_000), (58, 333), (300, 64)])
+def test_mix_probe_tap_passes_on_card(monkeypatch, m, tc):
+    """Tiles forced off the chooser's: one output a CTA, several tap passes
+    a tile, a ragged last pass, few CTAs."""
+    dev = _card()
+    monkeypatch.setattr(mix_probe, "choose_tile", lambda *a: (m, tc))
+    h = taps("usb")
+    warm = warm_block("pcm_s16le", -1, seed=21)
+    got, launched = _probe_on_card(warm, h, dev)
+    _agree_1e10(got, mix_sign_powers(warm, PROBE_FS, OFFSET, h, DECIMATION))
+    assert launched == 1
+
+
+def test_mix_probe_is_deterministic():
+    """No floating-point atomics: 20 calls give the same powers bit for bit."""
+    dev = _card()
+    h = taps("nfm")
+    warm = warm_block("pcm_f32le", 0, seed=7)
+    runs = {_probe_on_card(warm, h, dev)[0] for _ in range(20)}
+    assert len(runs) == 1
+
+
+def test_mix_probe_rejects_bad_inputs():
+    dev = _card()
+    h = taps("nfm")
+    warm = warm_block("pcm_s16le", 1, seed=3)
+    with pytest.raises(ValueError):
+        mix_probe.mix_sign_powers(warm.astype(np.complex128), PROBE_FS, OFFSET, h, DECIMATION, dev)
+    with pytest.raises(ValueError):
+        mix_probe.mix_sign_powers(warm, PROBE_FS, OFFSET, h + 0j, DECIMATION, dev)
+
+
+@pytest.mark.parametrize("override", [None, -1, 1])
+@pytest.mark.parametrize("carrier", [1, -1])
+def test_pipeline_picks_the_sign_on_card(tmp_path, monkeypatch, carrier, override):
+    """A run on the card takes the twin's sign on its own warm-up block,
+    decided by the kernel (``probe_on_device`` on ``iq2a.setup.mix_sign``);
+    ``mix_sign_override`` skips the probe and the counter."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _card()
+    fs, offset = 250_000.0, 25_000.0
+    n = int(fs * 0.6)
+    phase = 2 * np.pi * carrier * offset * np.arange(n) / fs
+    iq = 0.7 * np.exp(1j * phase)
+    path = tmp_path / "baseband_145000000Hz_cap.wav"
+    write_stereo_wav(path, np.column_stack([iq.real, iq.imag]), int(fs), codec="pcm_s16le")
+    seen = []
+    real = tpipeline.choose_mix_sign_on
+
+    def spy(device, warm, *args):
+        seen.append((device, warm, args))
+        return real(device, warm, *args)
+
+    monkeypatch.setattr(tpipeline, "choose_mix_sign_on", spy)
+    cfg = ProcessingConfig(
+        in_path=path, target_freq=145_000_000.0 + offset, output_path=tmp_path / "a.wav",
+        chunk_size=65_536, device="cuda", mix_sign_override=override,
+    )
+    spans.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            result = ProcessingPipeline(cfg).run()
+        (rec,) = [r for r in spans.records() if r.name == "iq2a.setup.mix_sign"]
+    finally:
+        spans.reset()
+    if override is not None:
+        assert seen == [] and result.mix_sign == override
+        assert "probe_on_device" not in rec.counters
+        return
+    ((device, warm, args),) = seen
+    assert device.type == "cuda"
+    assert result.mix_sign == choose_mix_sign(warm, *args) == carrier
+    assert rec.counters == {"probe_on_device": 1}
