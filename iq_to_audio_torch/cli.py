@@ -37,6 +37,7 @@ from pathlib import Path
 from . import __version__
 from .io.formats import parse_user_format
 from .pipeline.benchmark import run_benchmark
+from .pipeline.capture import MAX_TARGETS, channel_paths
 from .pipeline.config import ProcessingConfig
 from .pipeline.pipeline import ProcessingCancelled, ProcessingPipeline, ProcessingResult
 from .pipeline.preview import run_preview
@@ -452,7 +453,7 @@ def main(argv: list[str] | None = None) -> int:
             parser.error(f"--input-format: {exc}")
         input_fmt = (codec, container, "cli")
 
-    if len(frequencies) > 5:
+    if len(frequencies) > MAX_TARGETS:
         parser.error("At most five target frequencies are supported per run.")
     for n, freq in enumerate(frequencies):
         if any(
@@ -773,8 +774,8 @@ def _maybe_run_seq_parallel(
     # serial-parity output naming: the per-channel paths the serial
     # pipeline would write (shared --out hints get _<freq> suffixes when
     # batching; defaults are audio_<FT>_48k.wav beside the input)
-    helper = ProcessingPipeline(_build_batched_config(args, frequencies, shared_kwargs))
-    paths = helper._channel_paths(list(frequencies), args.output_path)
+    config = _build_batched_config(args, frequencies, shared_kwargs)
+    paths = channel_paths(config, list(frequencies), args.output_path)
     for p in paths:
         p.parent.mkdir(parents=True, exist_ok=True)
     job = CaptureJob(

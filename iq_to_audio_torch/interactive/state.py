@@ -12,7 +12,7 @@ import math
 from dataclasses import dataclass, field
 from pathlib import Path
 
-MAX_TARGETS = 5
+from ..pipeline.capture import MAX_TARGETS, is_pass_through
 
 # Plot themes: the reference's five palettes (reference
 # interactive/state.py:11-52 — default/contrast/night/paper/aurora, same
@@ -104,7 +104,7 @@ class InteractiveState:
         if mode in {"usb", "lsb", "ssb"}:
             self.agc_enabled = self._agc_preferred
         else:
-            self.agc_enabled = mode not in {"none", "pass", "iq"} and self.agc_enabled
+            self.agc_enabled = not is_pass_through(mode) and self.agc_enabled
 
     @property
     def agc_applicable(self) -> bool:

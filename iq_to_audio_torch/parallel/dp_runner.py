@@ -37,19 +37,24 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..io.formats import InputFormatSpec, resolve_input_format
-from ..io.probe import probe_sample_rate
+from ..io.formats import InputFormatSpec
 from ..io.reader import IQReader
 from ..io.writer import AudioWriter
 from ..ops.ddc import DDCPlan, bandpass_kernel, interleave_kernel
-from ..ops.mix_probe import choose_mix_sign_on
-from ..ops.nco import nco_increment_fixed, nco_increment_residual
-from ..ops.resample import ResamplePlan, design_resampler_kernel
-from ..pipeline.filters import compute_decimation, design_channel_filter
+from ..ops.resample import ResamplePlan
+from ..pipeline.capture import (
+    ChannelGeometry,
+    annotate,
+    channel_geometry,
+    decide_mix_sign,
+    nco_increments,
+    resampler_kernel,
+    resolve_capture,
+    warm_frames,
+)
 from ..pipeline.pipeline import ProcessingCancelled
 from ..pipeline.progress import PhaseState, ProgressSink, ProgressTracker
 from ..utils.device import resolve_device
-from ..utils.freq import detect_center_frequency
 from .launch import DEFAULT_TIMEOUT, run_world
 from .mesh import device_count, make_mesh
 from .sharded import (
@@ -63,7 +68,6 @@ from .sharded import (
 
 LOG = logging.getLogger(__name__)
 
-_OUTPUT_RATE = 48_000.0
 #: what a cancelled rank returns in place of a result
 _CANCELLED = "cancelled"
 
@@ -130,22 +134,22 @@ class DPRun:
         return max(1, -(-int(self.total_frames) // self.ddc_plan.chunk_size))
 
 
-def _annotate(path: Path, freq: float) -> Path:
-    return path.with_name(f"{path.stem}_{int(round(freq))}{path.suffix}")
-
-
 def mesh_geometry(
     sample_rate: float, bandwidth: float, fs_ch_target: float, seq: int, target_chunk: int
 ):
     """The shared DSP geometry of a run on ``seq`` shards: ``(taps,
-    decimation, fs_channel, ddc_plan, rs_plan)``, the chunk aligned to the
+    decimation, fs_channel, ddc_plan, rs_plan)`` (see :func:`mesh_plans`)."""
+    geo = channel_geometry(sample_rate, bandwidth, fs_ch_target)
+    return (geo.taps, geo.decimation, geo.fs_channel, *mesh_plans(geo, seq, target_chunk))
+
+
+def mesh_plans(geo: ChannelGeometry, seq: int, target_chunk: int):
+    """``(ddc_plan, rs_plan)`` on ``seq`` shards: the chunk aligned to the
     decimation, the shards and the resampler's ``down``."""
-    decimation, fs_channel = compute_decimation(sample_rate, fs_ch_target)
-    taps = design_channel_filter(sample_rate, bandwidth, decimation)
-    rate_plan = ResamplePlan.create(fs_channel, _OUTPUT_RATE, 1)
-    align = decimation * (1 if rate_plan.identity else rate_plan.down)
+    decimation = geo.decimation
+    align = decimation * geo.out_align
     ddc_plan = plan_for_mesh(
-        num_taps=len(taps),
+        num_taps=len(geo.taps),
         decimation=decimation,
         seq=seq * (align // math.gcd(align, decimation * seq)),
         target_chunk=target_chunk,
@@ -156,8 +160,7 @@ def mesh_geometry(
     lcm = unit * align // math.gcd(unit, align)
     if n % lcm:
         ddc_plan = replace(ddc_plan, chunk_size=-(-n // lcm) * lcm)
-    rs_plan = ResamplePlan.create(fs_channel, _OUTPUT_RATE, ddc_plan.out_size)
-    return taps, decimation, fs_channel, ddc_plan, rs_plan
+    return ddc_plan, geo.resampler(ddc_plan.out_size)
 
 
 def plan_captures(
@@ -187,76 +190,49 @@ def plan_captures(
         raise ValueError(f"mesh dp axis ({dp}) must equal capture count ({G})")
 
     # --- per-capture probing ------------------------------------------------
-    specs, rates, centers = [], [], []
-    for job in jobs:
-        spec, _src = resolve_input_format(Path(job.in_path), requested=job.input_format)
-        specs.append(spec)
-        if job.input_sample_rate:
-            rates.append(float(job.input_sample_rate))
-        else:
-            probe = probe_sample_rate(Path(job.in_path))
-            if probe.value is None:
-                raise ValueError(f"Cannot determine sample rate of {job.in_path}")
-            rates.append(float(probe.value))
-        if job.center_freq is not None:
-            centers.append(float(job.center_freq))
-        else:
-            det = detect_center_frequency(Path(job.in_path))
-            if det.value is None:
-                raise ValueError(f"Cannot determine center frequency of {job.in_path}")
-            centers.append(float(det.value))
-    sample_rate = rates[0]
-    codec = specs[0].codec
-    if any(abs(r - sample_rate) > 1e-6 for r in rates) or any(s.codec != codec for s in specs):
+    caps = [
+        resolve_capture(
+            Path(job.in_path), input_format=job.input_format,
+            sample_rate=job.input_sample_rate, center_freq=job.center_freq,
+            targets=job.target_freqs,
+        )
+        for job in jobs
+    ]
+    sample_rate = caps[0].sample_rate
+    codec = caps[0].spec.codec
+    if any(abs(c.sample_rate - sample_rate) > 1e-6 or c.spec.codec != codec for c in caps):
         raise ValueError(
             "multi-capture DP requires identical sample rate and codec across "
             "captures; run heterogeneous captures sequentially"
         )
 
-    taps, decimation, fs_channel, ddc_plan, rs_plan = mesh_geometry(
-        sample_rate, bandwidth, fs_ch_target, seq, target_chunk
-    )
+    geo = channel_geometry(sample_rate, bandwidth, fs_ch_target)
+    ddc_plan, rs_plan = mesh_plans(geo, seq, target_chunk)
     check_geometry(dp, seq, G * K, ddc_plan, G)
-    offsets = [[f - c for f in job.target_freqs] for job, c in zip(jobs, centers)]
 
     # --- per-capture mixer sign (the float64 probe on the run's device) -----
-    chunk = ddc_plan.chunk_size
-    probe_len = min(chunk, max(int(sample_rate * 0.05), 4 * len(taps), 131_072))
-    signs = []
-    for g, job in enumerate(jobs):
-        if mix_sign_override is not None:
-            signs.append(int(mix_sign_override))
-            continue
-        with IQReader(
-            Path(job.in_path), probe_len, iq_order, specs[g],
-            sample_rate=sample_rate if specs[g].container == "raw" else None,
-            prefetch_depth=0,
-        ) as r:
-            warm = r.read_block()
-        if warm is None or warm.size == 0:
-            raise ValueError(f"Input {job.in_path} contains no samples.")
-        signs.append(choose_mix_sign_on(
-            resolve_device(device), warm, sample_rate, offsets[g][0], taps, decimation
-        ))
-    incs = [
-        nco_increment_fixed(off, sample_rate, sign=signs[g])
-        for g in range(G)
-        for off in offsets[g]
-    ]
-    nco_res = [
-        nco_increment_residual(off, sample_rate, sign=signs[g])
-        for g in range(G)
-        for off in offsets[g]
-    ]
+    def warm_block(cap):
+        with cap.reader(warm_frames(sample_rate, len(geo.taps)), iq_order) as r:
+            return r.read_block_raw()
+
+    incs, nco_res = [], []
+    for cap in caps:
+        sign = decide_mix_sign(
+            lambda cap=cap: warm_block(cap), resolve_device(device), codec, iq_order,
+            sample_rate, cap.offsets[0], geo, override=mix_sign_override,
+        )
+        inc, res = nco_increments(cap.offsets, sample_rate, sign)
+        incs += inc
+        nco_res += res
 
     # --- output paths: fail before any file exists ---------------------------
     outputs: list[list[Path]] = []
     for job in jobs:
         outs = [Path(p) for p in job.output_paths]
         if not outs:
-            outs = [_annotate(Path(job.in_path).with_suffix(".wav"), f) for f in job.target_freqs]
+            outs = [annotate(Path(job.in_path).with_suffix(".wav"), f) for f in job.target_freqs]
         elif len(outs) == 1 and K > 1:
-            outs = [_annotate(outs[0], f) for f in job.target_freqs]
+            outs = [annotate(outs[0], f) for f in job.target_freqs]
         if len(outs) != K:
             raise ValueError(
                 f"{job.in_path}: {len(outs)} output path(s) for {K} target "
@@ -266,12 +242,8 @@ def plan_captures(
 
     # --- the common length ---------------------------------------------------
     totals = []
-    for g, job in enumerate(jobs):
-        with IQReader(
-            Path(job.in_path), chunk, iq_order, specs[g],
-            sample_rate=sample_rate if specs[g].container == "raw" else None,
-            prefetch_depth=0,
-        ) as r:
+    for cap in caps:
+        with cap.reader(ddc_plan.chunk_size, iq_order) as r:
             totals.append(r.total_frames)
     if len(set(totals)) > 1:
         LOG.warning("Captures differ in length; processing the common %d frames.", min(totals))
@@ -279,20 +251,20 @@ def plan_captures(
     mode = "usb" if demod_mode.lower() == "ssb" else demod_mode.lower()
     return DPRun(
         paths=[Path(j.in_path) for j in jobs],
-        specs=specs,
+        specs=[c.spec for c in caps],
         sample_rate=sample_rate,
         iq_order=iq_order,
         total_frames=min(totals),
         ddc_plan=ddc_plan,
         rs_plan=rs_plan,
-        fs_channel=fs_channel,
+        fs_channel=geo.fs_channel,
         incs=incs,
         nco_res=nco_res,
-        kernel_il=interleave_kernel(bandpass_kernel(taps, incs, nco_res), iq_order),
-        rs_kernel=None if rs_plan.identity else design_resampler_kernel(rs_plan.up, rs_plan.down),
+        kernel_il=interleave_kernel(bandpass_kernel(geo.taps, incs, nco_res), iq_order),
+        rs_kernel=resampler_kernel(rs_plan),
         mode=mode,
         # same tau guard as the serial decoder (demod/nfm.py::setup)
-        deemph_alpha=math.exp(-1.0 / (fs_channel * max(deemph_us * 1e-6, 1e-6))),
+        deemph_alpha=math.exp(-1.0 / (geo.fs_channel * max(deemph_us * 1e-6, 1e-6))),
         agc_enabled=agc_enabled,
         outputs=outputs,
         dp=dp,

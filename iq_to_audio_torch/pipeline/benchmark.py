@@ -69,34 +69,28 @@ def measure_step_resident_msps(
 
     from ..demod import create_decoder
     from ..ops.ddc import DDCPlan, bandpass_kernel
-    from ..ops.nco import nco_increment_fixed, nco_increment_residual
-    from ..ops.resample import ResamplePlan, design_resampler_kernel
     from ..utils.device import resolve_device
     from ..utils.device_clock import resident_rate
-    from .filters import compute_decimation, design_channel_filter
+    from .capture import channel_geometry, nco_increments, resampler_kernel
     from .step import build_chunk_step
 
     dev = resolve_device(device)
-    decim, fs_ch = compute_decimation(sample_rate, 96_000.0)
-    taps = design_channel_filter(sample_rate, 12_500.0, decim)
-    align_probe = ResamplePlan.create(fs_ch, 48_000.0, 1)
+    geo = channel_geometry(sample_rate, 12_500.0, 96_000.0)
+    taps = geo.taps
     ddc_plan = DDCPlan.create(
-        len(taps), decim, target_chunk=target_chunk, out_align=align_probe.down,
+        len(taps), geo.decimation, target_chunk=target_chunk, out_align=geo.out_align,
         max_chunk=max(target_chunk, 1 << 22),
     )
-    rs_plan = ResamplePlan.create(fs_ch, 48_000.0, ddc_plan.out_size)
+    rs_plan = geo.resampler(ddc_plan.out_size)
     decoder = create_decoder("nfm", deemph_us=300.0, agc_enabled=True)
-    decoder.setup(fs_ch)
+    decoder.setup(geo.fs_channel)
     offsets = [offset_hz, *_spread_channels(0.0, sample_rate, channels)[0]]
-    incs = [nco_increment_fixed(o, sample_rate) for o in offsets]
-    nco_res = [nco_increment_residual(o, sample_rate) for o in offsets]
+    incs, nco_res = nco_increments(offsets, sample_rate)
     step = build_chunk_step(
         ddc_plan=ddc_plan,
         rs_plan=rs_plan,
         ddc_kernel_np=bandpass_kernel(taps, incs, nco_res),
-        rs_kernel_np=(
-            None if rs_plan.identity else design_resampler_kernel(rs_plan.up, rs_plan.down)
-        ),
+        rs_kernel_np=resampler_kernel(rs_plan),
         incs_fixed=incs,
         nco_res=nco_res,
         codec="pcm_s16le",

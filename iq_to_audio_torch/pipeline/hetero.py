@@ -54,19 +54,24 @@ import numpy as np
 import torch
 
 from ..demod import DecoderStats
-from ..io.formats import resolve_input_format
-from ..io.probe import SampleRateProbe, probe_sample_rate
-from ..io.reader import IQReader, convert_to_complex
 from ..ops import _cuda_build
 from ..ops.ddc import DDCPlan, ddc_apply_il
-from ..ops.mix_probe import choose_mix_sign_on
 from ..ops.poly_fir import build_poly_kernel
-from ..ops.resample import ResamplePlan
 from ..utils.device import resolve_device
 from ..utils.device_clock import resident_rate
-from ..utils.freq import detect_center_frequency
+from .capture import (
+    OUTPUT_RATE,
+    Capture,
+    ChannelGeometry,
+    annotate,
+    channel_geometry,
+    channel_paths,
+    decide_mix_sign,
+    is_pass_through,
+    resolve_capture,
+    warm_frames,
+)
 from .config import ProcessingConfig
-from .filters import compute_decimation, design_channel_filter
 from .pipeline import ProcessingCancelled, ProcessingPipeline, ProcessingResult
 from .progress import PhaseState, ProgressSink, ProgressTracker
 from .seg_worker import config_to_wire
@@ -80,8 +85,6 @@ from .segmented import (
 from .step import choose_channelizer
 
 LOG = logging.getLogger(__name__)
-
-_OUTPUT_RATE = 48_000
 
 #: prior of the device's resident channelizer rate (input Msps) for the
 #: wire-probe prediction until the resident-compute probe has measured it.
@@ -100,83 +103,30 @@ _PROBE_SECONDS_BENCH = 0.05
 
 @dataclass
 class HeteroPlan:
-    """Resolved capture facts + the segment plan for one run."""
+    """The resolved capture, its channel geometry and mixer sign, and the
+    segment plan for one run."""
 
     segments: list[Segment]
-    probe: SampleRateProbe
-    sample_rate: float
-    center_freq: float
-    center_freq_source: str
-    target_freq: float
-    freq_offset: float
-    decimation: int
-    fs_channel: float
+    capture: Capture
+    geometry: ChannelGeometry
     mix_sign: int
     total_samples: int
-    input_container: str
-    input_format: str
-    #: resolved InputFormatSpec (pass-through slices preserve its codec)
-    input_spec: object = None
     #: ``--demod none``: segments write IQ slices instead of audio
     pass_through: bool = False
-    #: channel-filter tap count (sizes the resident-compute measurement)
-    num_taps: int = 0
 
 
 def _plan(config: ProcessingConfig, n_segments: int,
           warm_seconds: float | None, front_split: int = 1) -> HeteroPlan:
     """Probe the capture on the host and plan its segments (no device work)."""
-    spec, _source = resolve_input_format(
-        config.in_path,
-        requested=config.input_format,
-        container_hint=config.input_container,
+    cap = resolve_capture(
+        config.in_path, input_format=config.input_format, container=config.input_container,
+        sample_rate=config.input_sample_rate, center_freq=config.center_freq,
+        center_source=config.center_freq_source, targets=config.all_target_freqs(),
     )
-    if spec.container == "raw":
-        if not config.input_sample_rate or config.input_sample_rate <= 0:
-            raise ValueError("Raw IQ inputs require an input sample rate.")
-        sample_rate = float(config.input_sample_rate)
-        probe = SampleRateProbe(override=sample_rate)
-    else:
-        probe = probe_sample_rate(config.in_path)
-        if config.input_sample_rate:
-            sample_rate = float(config.input_sample_rate)
-            probe = dataclasses.replace(probe, override=sample_rate)
-        else:
-            sample_rate = probe.value
-
-    center = config.center_freq
-    center_source = config.center_freq_source or (
-        "config" if center is not None else "unavailable"
-    )
-    if center is None:
-        detection = detect_center_frequency(config.in_path)
-        if detection.value is None:
-            raise ValueError(
-                "Center frequency not supplied and could not be determined "
-                "from metadata or filename. Use --fc to provide it explicitly."
-            )
-        center, center_source = detection.value, detection.source
-    target = config.target_freq
-    offset = target - center
-
-    decimation, fs_channel = compute_decimation(sample_rate, config.fs_ch_target)
-    pass_through = (config.demod_mode or "").lower() in {"none", "pass", "iq"}
-    if pass_through:
-        rs_up = rs_down = 1  # slices stay at the decimated rate
-    else:
-        rate_plan = ResamplePlan.create(fs_channel, _OUTPUT_RATE, 1)
-        rs_up, rs_down = rate_plan.up, rate_plan.down
-    taps = design_channel_filter(sample_rate, config.bandwidth, decimation)
-
-    probe_len = max(int(sample_rate * 0.05), len(taps) * 4, 131_072)
-    with IQReader(
-        config.in_path,
-        probe_len,
-        config.iq_order,
-        spec,
-        sample_rate=sample_rate if spec.container == "raw" else None,
-        prefetch_depth=0,
-    ) as reader:
+    sample_rate = cap.sample_rate
+    pass_through = is_pass_through(config.demod_mode)
+    geo = channel_geometry(sample_rate, config.bandwidth, config.fs_ch_target, pass_through)
+    with cap.reader(warm_frames(sample_rate, len(geo.taps)), config.iq_order) as reader:
         total = int(reader.total_frames)
         if total <= 0:
             # the serial pipeline reports this cleanly at warm-up; a
@@ -184,59 +134,28 @@ def _plan(config: ProcessingConfig, n_segments: int,
             # phantom segments that all die late at splice time
             raise ValueError(f"Input {config.in_path} contains no samples.")
         if config.max_input_seconds and config.max_input_seconds > 0:
-            cap = max(1, int(math.floor(config.max_input_seconds * sample_rate)))
-            total = min(total, cap)
-        if config.mix_sign_override in (1, -1):
-            mix_sign = int(config.mix_sign_override)
-        else:
-            raw = reader.read_block_raw()
-            if raw is None:
-                raise ValueError(f"Input {config.in_path} contains no samples.")
-            warm = convert_to_complex(raw, spec.codec, config.iq_order)
-            mix_sign = choose_mix_sign_on(
-                resolve_device(config.device), warm, sample_rate, offset, taps, decimation
-            )
+            total = min(total, max(1, int(math.floor(config.max_input_seconds * sample_rate))))
+        mix_sign = decide_mix_sign(
+            reader.read_block_raw, resolve_device(config.device), cap.spec.codec,
+            config.iq_order, sample_rate, cap.offsets[0], geo,
+            override=config.mix_sign_override,
+        )
 
     if warm_seconds is None:
         # mode-aware lead-in (segmented.warm_seconds_for): NFM/AM converge
         # orders of magnitude faster than the blanket 0.5 s ceiling, and
         # lead-ins are pure overhead whenever one side drains the plan
         warm_seconds = warm_seconds_for(
-            config.demod_mode,
-            config.agc_enabled,
-            fs_channel,
-            len(taps),
-            sample_rate,
-            deemph_us=config.deemph_us,
+            config.demod_mode, config.agc_enabled, geo.fs_channel, len(geo.taps),
+            sample_rate, deemph_us=config.deemph_us,
         )
+    # slices stay at the decimated rate
+    rs_up, rs_down = (geo.ratio.up, geo.ratio.down) if geo.ratio else (1, 1)
     segments = plan_segments(
-        total,
-        sample_rate,
-        decimation,
-        rs_up,
-        rs_down,
-        n_segments,
-        warm_seconds=warm_seconds,
-        front_split=front_split,
+        total, sample_rate, geo.decimation, rs_up, rs_down, n_segments,
+        warm_seconds=warm_seconds, front_split=front_split,
     )
-    return HeteroPlan(
-        segments=segments,
-        probe=probe,
-        sample_rate=sample_rate,
-        center_freq=center,
-        center_freq_source=center_source,
-        target_freq=target,
-        freq_offset=offset,
-        decimation=decimation,
-        fs_channel=fs_channel,
-        mix_sign=mix_sign,
-        total_samples=total,
-        input_container=spec.container,
-        input_format=spec.codec,
-        input_spec=spec,
-        pass_through=pass_through,
-        num_taps=len(taps),
-    )
+    return HeteroPlan(segments, cap, geo, mix_sign, total, pass_through)
 
 
 def hetero_eligible(config: ProcessingConfig) -> bool:
@@ -746,6 +665,7 @@ class HeteroExecutor:
         plan = self._plan_or_none(config)
         if plan is None or len(plan.segments) < 2:
             return _serial_fallback("capture too short to segment")
+        cap, geo = plan.capture, plan.geometry
 
         # Cross-device determinism gate: the feedback-AGC recurrence
         # amplifies ulp-level differences between the card's channelizer
@@ -783,17 +703,13 @@ class HeteroExecutor:
         # final per-channel output paths, named exactly like the serial
         # pipeline's (shared --out hints get the _<freq> suffix when
         # batching, explicit per-channel extras are honoured verbatim)
-        helper = ProcessingPipeline(config)
-        helper._input_spec = plan.input_spec  # pass-through default naming
-        freqs = helper._target_freqs()
-        if not freqs:
+        if config.target_freq <= 0:
             # the serial pipeline targets the detected center when no
             # explicit frequency is given (pipeline.py fallback) — rare
             # library-caller path, keep its exact semantics there
             return _serial_fallback("no explicit target frequency")
-        final_paths = helper._channel_paths(
-            freqs, Path(config.output_path) if config.output_path else None
-        )
+        freqs = cap.freqs
+        final_paths = channel_paths(config, freqs, config.output_path, cap.spec)
         multi = len(freqs) > 1
         out_path = final_paths[0]
         for p in final_paths:  # serial parity: every channel's parent
@@ -838,7 +754,7 @@ class HeteroExecutor:
                 "device_abstained": False,
             }
             rates = self._rates
-            sr = max(plan.sample_rate, 1e-9)
+            sr = max(cap.sample_rate, 1e-9)
 
             def _secs(segs) -> float:
                 """Owned signal seconds across an iterable of segments."""
@@ -957,10 +873,10 @@ class HeteroExecutor:
 
             def _seg_channel_paths(seg_path: Path) -> list[Path]:
                 """Per-channel files one segment run writes (channel 0 gets the
-                _<freq> suffix when batching — pipeline _channel_paths rules)."""
+                _<freq> suffix when batching — capture.channel_paths rules)."""
                 if not multi:
                     return [seg_path]
-                first = ProcessingPipeline._annotate(seg_path, freqs[0])
+                first = annotate(seg_path, freqs[0])
                 extras = [
                     seg_path.with_name(f"{seg_path.stem}_ch{i}{seg_path.suffix}")
                     for i in range(1, len(freqs))
@@ -972,14 +888,14 @@ class HeteroExecutor:
                     config,
                     output_path=seg_path,
                     extra_output_paths=_seg_channel_paths(seg_path)[1:],
-                    center_freq=plan.center_freq,
-                    center_freq_source=plan.center_freq_source,
+                    center_freq=cap.center_freq,
+                    center_freq_source=cap.center_source,
                     mix_sign_override=plan.mix_sign,
                     input_start_sample=seg.read_start,
                     input_num_samples=seg.read_samples,
                     max_input_seconds=None,
-                    input_container=plan.input_container,
-                    input_format=plan.input_format,
+                    input_container=cap.spec.container,
+                    input_format=cap.spec.codec,
                     # claims vary in length; one accumulator geometry for all
                     fixed_device_geometry=True,
                 )
@@ -1032,18 +948,18 @@ class HeteroExecutor:
                 with lock:
                     seg = queue[0] if queue else plan.segments[-1]
                 seg_sec = seg.length / sr
-                bpf = getattr(plan.input_spec, "bytes_per_frame", 4)
+                bpf = cap.spec.bytes_per_frame
                 if plan.pass_through:
-                    out_bytes = seg_sec * plan.fs_channel * bpf
+                    out_bytes = seg_sec * geo.fs_channel * bpf
                 else:
-                    out_bytes = seg_sec * _OUTPUT_RATE * 2 * len(freqs)
+                    out_bytes = seg_sec * OUTPUT_RATE * 2 * len(freqs)
                 try:
                     est = self._wire_probe_rate(
                         seg_sec, int(seg.read_samples) * bpf,
                         int(seg.read_samples), int(out_bytes),
                         should_abort=lambda: self._cancel.is_set() or not queue,
-                        num_taps=plan.num_taps,
-                        decimation=plan.decimation,
+                        num_taps=len(geo.taps),
+                        decimation=geo.decimation,
                     )
                 except Exception as exc:
                     if device.type == "cuda":
@@ -1118,7 +1034,7 @@ class HeteroExecutor:
                         stats["device_runs"] += 1
                         stats["device_seconds"] += elapsed
                         stats["device_signal_seconds"] += (
-                            seg.length / plan.sample_rate
+                            seg.length / cap.sample_rate
                         )
                         _note_progress_locked()
                         more_work = bool(queue) or cpu_busy[0] > 0
@@ -1126,7 +1042,7 @@ class HeteroExecutor:
                             # fetch-free warm runs are artificially fast; they
                             # must not seed the claim-sizing rate estimate
                             rates["device"] = (
-                                seg.length / plan.sample_rate / max(elapsed, 1e-9),
+                                seg.length / cap.sample_rate / max(elapsed, 1e-9),
                                 time.monotonic(),
                             )
                             self._device_rate_estimated = False
@@ -1229,10 +1145,10 @@ class HeteroExecutor:
                         stats["cpu_segments"] += len(claims)
                         stats["cpu_seconds"] += elapsed
                         stats["cpu_signal_seconds"] += (
-                            seg.length / plan.sample_rate
+                            seg.length / cap.sample_rate
                         )
                         _note_progress_locked()
-                        rate = seg.length / plan.sample_rate / max(elapsed, 1e-9)
+                        rate = seg.length / cap.sample_rate / max(elapsed, 1e-9)
                         prev = rates["cpu"]
                         rates["cpu"] = (
                             rate if prev is None else 0.5 * (prev[0] + rate),
@@ -1343,7 +1259,7 @@ class HeteroExecutor:
                     if plan.pass_through:
                         peak_c, _total = splice_iq_slices(
                             paths_c, skips_c, final,
-                            plan.fs_channel, plan.input_spec,
+                            geo.fs_channel, cap.spec,
                         )
                     else:
                         peak_c, _total, rms_c = splice_audio(paths_c, skips_c, final)
@@ -1375,12 +1291,12 @@ class HeteroExecutor:
                 else:
                     LOG.info("[%.0f] %s %.2f dBFS.", freq, peak_label, peak_db)
             return ProcessingResult(
-                sample_rate_probe=plan.probe,
-                center_freq=plan.center_freq,
-                target_freq=plan.target_freq,
-                freq_offset=plan.freq_offset,
-                decimation=plan.decimation,
-                fs_channel=plan.fs_channel,
+                sample_rate_probe=cap.probe,
+                center_freq=cap.center_freq,
+                target_freq=cap.freqs[0],
+                freq_offset=cap.offsets[0],
+                decimation=geo.decimation,
+                fs_channel=geo.fs_channel,
                 mix_sign=plan.mix_sign,
                 audio_peak=peaks[0] if peaks else 0.0,
                 audio_peaks=peaks,

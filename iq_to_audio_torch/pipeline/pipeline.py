@@ -25,7 +25,6 @@ Drives the chunk step (:mod:`.step`) from a host loop with:
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import hashlib
 import logging
 import math
@@ -40,20 +39,24 @@ import torch
 
 from ..convert import state_from_jax, state_to_jax
 from ..demod import DecoderStats, create_decoder
-from ..io.formats import InputFormatSpec, resolve_input_format
-from ..io.probe import SampleRateProbe, probe_sample_rate
-from ..io.reader import IQReader, convert_to_complex
+from ..io.probe import SampleRateProbe
 from ..io.writer import AudioWriter, IQDebugWriter, IQSliceWriter
 from ..ops.ddc import DDCPlan, bandpass_kernel
-from ..ops.mix_probe import choose_mix_sign_on
-from ..ops.nco import nco_increment_fixed, nco_increment_residual
-from ..ops.resample import ResamplePlan, design_resampler_kernel
-from ..ref.chain import mix_probe_len
 from ..utils import spans
 from ..utils.device import resolve_device
-from ..utils.freq import detect_center_frequency
+from .capture import (
+    OUTPUT_RATE,
+    annotate,
+    channel_geometry,
+    channel_paths,
+    decide_mix_sign,
+    is_pass_through,
+    nco_increments,
+    resampler_kernel,
+    resolve_capture,
+)
 from .config import ProcessingConfig
-from .filters import compute_decimation, design_channel_filter, tune_chunk_size
+from .filters import tune_chunk_size
 from .progress import PhaseState, ProgressSink, ProgressTracker
 from .step import build_chunk_step
 
@@ -62,9 +65,6 @@ LOG = logging.getLogger(__name__)
 # layout of the port's checkpoint (state as numpy in the JAX package's
 # layout, counters, RMS); bump when it changes
 _CKPT_VERSION = 2
-
-_OUTPUT_RATE = 48_000.0
-_MAX_TARGETS = 5
 
 
 @dataclass
@@ -142,12 +142,6 @@ class _PinnedRing:
             self.events[i] = None
 
 
-def _read(reader: IQReader):
-    """The reader's next raw block, as an ``iq2a.read`` span."""
-    with spans.span("iq2a.read"):
-        return reader.read_block_raw()
-
-
 def _write(write, samples: np.ndarray) -> None:
     """One writer call (``write`` / ``write_s16``) as an ``iq2a.write`` span."""
     with spans.span("iq2a.write"):
@@ -183,7 +177,6 @@ class ProcessingPipeline:
     def __init__(self, config: ProcessingConfig):
         self.config = config
         self._cancelled = False
-        self._input_spec: InputFormatSpec | None = None
         #: a pass that dispatches every chunk and waits for the device, but
         #: copies nothing back and writes no samples (the outputs stay
         #: empty): the burst executor's warm pass
@@ -193,71 +186,12 @@ class ProcessingPipeline:
     def cancel(self) -> None:
         self._cancelled = True
 
-    # -- helpers -----------------------------------------------------------
-
-    def _is_pass_through_mode(self) -> bool:
-        return (self.config.demod_mode or "").lower() in {"none", "pass", "iq"}
-
-    def _target_freqs(self) -> list[float]:
-        return [f for f in self.config.all_target_freqs() if f and f > 0]
-
-    def _default_output_path(self, target_freq: float) -> Path:
-        ft = int(target_freq)
-        if self._is_pass_through_mode():
-            spec = self._input_spec
-            in_suffix = self.config.in_path.suffix
-            if spec and spec.container == "wav":
-                wav_suffixes = {".wav", ".wave", ".wv", ".rf64"}
-                ext = in_suffix if in_suffix.lower() in wav_suffixes else ".wav"
-            elif spec and spec.container == "raw":
-                codec_ext = {"pcm_u8": ".cu8", "pcm_s16le": ".cs16", "pcm_f32le": ".cf32"}
-                ext = in_suffix or codec_ext.get(spec.codec, ".raw")
-            else:
-                ext = in_suffix or ".wav"
-            return self.config.in_path.with_name(f"slice_{ft}{ext}")
-        return self.config.in_path.with_name(f"audio_{ft}_48k.wav")
-
-    @staticmethod
-    def _annotate(base: Path, freq: float) -> Path:
-        return base.with_name(f"{base.stem}_{int(round(freq))}{base.suffix}")
-
-    def _channel_paths(self, freqs: list[float], base: Path | None) -> list[Path]:
-        """Per-channel output paths: an explicit extra path verbatim, else the
-        shared ``output_path`` suffixed with ``_<freq>`` when batching, else
-        the default name (reference cli ``annotate_path``)."""
-        paths: list[Path] = []
-        extras = self.config.extra_output_paths
-        multi = len(freqs) > 1
-        for i, freq in enumerate(freqs):
-            explicit = extras[i - 1] if i > 0 and i - 1 < len(extras) else None
-            if explicit is not None:
-                paths.append(Path(explicit))
-            elif base is not None:
-                paths.append(self._annotate(base, freq) if multi else base)
-            else:
-                paths.append(self._default_output_path(freq))
-        return paths
-
     # -- main entry ----------------------------------------------------------
 
     @spans.job
     def run(self, progress_sink: ProgressSink | None = None) -> ProcessingResult:
         cfg = self.config
         device = resolve_device(cfg.device)
-        if self._input_spec is None:
-            with spans.span("iq2a.setup.probe"):
-                spec, source = resolve_input_format(
-                    cfg.in_path, requested=cfg.input_format, container_hint=cfg.input_container
-                )
-            self._input_spec = spec
-            if not cfg.input_format_source:
-                cfg.input_format_source = source
-            if not cfg.input_container:
-                cfg.input_container = spec.container
-            if not cfg.input_format:
-                cfg.input_format = spec.codec
-        input_spec = self._input_spec
-
         tracker = ProgressTracker(progress_sink)
         output_paths: list[Path] = []
         cancel_logged = False
@@ -283,10 +217,6 @@ class ProcessingPipeline:
             with contextlib.suppress(AttributeError):
                 progress_sink.set_cancel_callback(request_cancel)
 
-        manual_rate = cfg.input_sample_rate
-        if manual_rate is not None and manual_rate <= 0:
-            raise ValueError("Input sample rate override must be positive.")
-
         #: every writer this run opens, closed on all exit paths
         all_writers: list = []
 
@@ -296,16 +226,13 @@ class ProcessingPipeline:
                     w.close()
 
         try:
-            return self._run(
-                cfg, device, input_spec, manual_rate, tracker, check_cancel,
-                all_writers, output_paths,
-            )
+            return self._run(cfg, device, tracker, check_cancel, all_writers, output_paths)
         except ProcessingCancelled:
             # delete partial outputs on cancel (reference processing.py:
             # 1205-1211), unless checkpointing is on: the partial output and
             # the checkpoint then let a later run resume
             close_writers_quietly()
-            keep_for_resume = cfg.checkpoint_secs and not self._is_pass_through_mode()
+            keep_for_resume = cfg.checkpoint_secs and not is_pass_through(cfg.demod_mode)
             if not cfg.probe_only and not keep_for_resume:
                 for p in output_paths:
                     try:
@@ -318,33 +245,27 @@ class ProcessingPipeline:
             tracker.close()
 
     def _run(
-        self, cfg, device, input_spec, manual_rate, tracker, check_cancel,
-        all_writers, output_paths,
+        self, cfg, device, tracker, check_cancel, all_writers, output_paths,
     ) -> ProcessingResult:
-        pass_through = self._is_pass_through_mode()
+        pass_through = is_pass_through(cfg.demod_mode)
+        if cfg.target_freq <= 0 and not cfg.probe_only:
+            raise ValueError(
+                "Target frequency must be positive. Provide --ft or use --interactive."
+            )
+        if cfg.bandwidth <= 0:
+            raise ValueError("Bandwidth must be positive.")
         # --- probing ---------------------------------------------------------
-        if input_spec.container == "raw":
-            if manual_rate is None:
-                raise ValueError(
-                    "Raw IQ inputs require --input-sample-rate (CLI) or a "
-                    "manual entry in the GUI."
-                )
-            sample_rate = float(manual_rate)
-            probe = SampleRateProbe(override=sample_rate)
-        else:
-            with spans.span("iq2a.setup.probe"):
-                probe = probe_sample_rate(cfg.in_path)
-            if manual_rate is not None:
-                sample_rate = float(manual_rate)
-                probe = dataclasses.replace(probe, override=sample_rate)
-            else:
-                try:
-                    sample_rate = probe.value
-                except RuntimeError as exc:
-                    raise RuntimeError(
-                        "Unable to determine input sample rate automatically. "
-                        "Provide --input-sample-rate or enter it manually."
-                    ) from exc
+        cap = resolve_capture(
+            cfg.in_path, input_format=cfg.input_format, container=cfg.input_container,
+            sample_rate=cfg.input_sample_rate, center_freq=cfg.center_freq,
+            center_source=cfg.center_freq_source, targets=cfg.all_target_freqs(),
+        )
+        input_spec, sample_rate, center_freq = cap.spec, cap.sample_rate, cap.center_freq
+        cfg.input_format_source = cfg.input_format_source or cap.format_source
+        cfg.input_container = cfg.input_container or input_spec.container
+        cfg.input_format = cfg.input_format or input_spec.codec
+        if cfg.center_freq is None:
+            cfg.center_freq, cfg.center_freq_source = center_freq, cap.center_source
 
         preview_seconds = cfg.max_input_seconds
         if preview_seconds is not None and preview_seconds <= 0:
@@ -359,34 +280,11 @@ class ProcessingPipeline:
                 seg_n if max_input_samples is None else min(max_input_samples, seg_n)
             )
 
-        if cfg.target_freq <= 0 and not cfg.probe_only:
-            raise ValueError(
-                "Target frequency must be positive. Provide --ft or use --interactive."
-            )
-        if cfg.bandwidth <= 0:
-            raise ValueError("Bandwidth must be positive.")
-
-        center_freq = cfg.center_freq
-        if center_freq is None:
-            with spans.span("iq2a.setup.probe"):
-                detection = detect_center_frequency(cfg.in_path)
-            if detection.value is None:
-                raise ValueError(
-                    "Center frequency not supplied and could not be determined "
-                    "from metadata or filename. Use --fc to provide it explicitly."
-                )
-            center_freq = detection.value
-            cfg.center_freq = center_freq
-            cfg.center_freq_source = detection.source
-            LOG.info("Center frequency detected via %s.", detection.source)
-
-        freqs = self._target_freqs() or [center_freq]
-        if len(freqs) > _MAX_TARGETS:
-            raise ValueError("At most five target frequencies are supported per run.")
-        offsets = [f - center_freq for f in freqs]
+        freqs, offsets = cap.freqs, cap.offsets
         target_freq, freq_offset = freqs[0], offsets[0]
         with spans.span("iq2a.setup.build"):
-            decimation, fs_channel = compute_decimation(sample_rate, cfg.fs_ch_target)
+            geo = channel_geometry(sample_rate, cfg.bandwidth, cfg.fs_ch_target, pass_through)
+            decimation, fs_channel, taps = geo.decimation, geo.fs_channel, geo.taps
             LOG.info(
                 "Input %.2f Hz, center %.0f Hz, target(s) %s (offset(s) %s Hz), "
                 "decimation %d -> %.2f Hz, %s, device %s.",
@@ -396,26 +294,18 @@ class ProcessingPipeline:
             )
 
             # --- geometry / plans --------------------------------------------
-            taps = design_channel_filter(sample_rate, cfg.bandwidth, decimation)
             target_chunk = tune_chunk_size(sample_rate, cfg.chunk_size)
             if device.type == "cuda" and cfg.chunk_size >= 1_048_576:
                 # the card amortises per-chunk launch and copy latency: prefer
                 # the 4Mi cap unless the user asked for less
                 target_chunk = max(target_chunk, 1 << 22)
-            rs_align = 1
-            if not pass_through:
-                rate_plan = ResamplePlan.create(fs_channel, _OUTPUT_RATE, 1)
-                rs_align = 1 if rate_plan.identity else rate_plan.down
             ddc_plan = DDCPlan.create(
-                len(taps), decimation, target_chunk=target_chunk, out_align=rs_align,
+                len(taps), decimation, target_chunk=target_chunk, out_align=geo.out_align,
                 max_chunk=1 << 22,
             )
             chunk_size = ddc_plan.chunk_size
-            rs_plan = (
-                None if pass_through
-                else ResamplePlan.create(fs_channel, _OUTPUT_RATE, ddc_plan.out_size)
-            )
-            resampling = rs_plan is not None and not rs_plan.identity
+            rs_plan = geo.resampler(ddc_plan.out_size)
+            names = channel_paths(cfg, freqs, cfg.output_path, input_spec)
 
             # --- checkpoint/resume: carried state + input offset -------------
             resume_data = None
@@ -429,7 +319,7 @@ class ProcessingPipeline:
                 )
                 ckpt_requested = False
             if ckpt_requested:
-                ckpt_path = Path(str(self._channel_paths(freqs, cfg.output_path)[0]) + ".ckpt")
+                ckpt_path = Path(str(names[0]) + ".ckpt")
             if cfg.resume and ckpt_path is not None and ckpt_path.exists():
                 with ckpt_path.open("rb") as f:
                     resume_data = pickle.load(f)
@@ -443,15 +333,7 @@ class ProcessingPipeline:
                 # budget shrinks by the same amount
                 max_input_samples = max(0, max_input_samples - resume_frames)
 
-        reader = IQReader(
-            cfg.in_path,
-            chunk_size,
-            cfg.iq_order,
-            input_spec,
-            sample_rate=sample_rate if input_spec.container == "raw" else None,
-            start_frame=seg_start + resume_frames,
-            prefetch_depth=0,  # synchronous reads: no Python thread beside dispatch
-        )
+        reader = cap.reader(chunk_size, cfg.iq_order, start_frame=seg_start + resume_frames)
         with contextlib.ExitStack() as opened:
             with spans.span("iq2a.setup.probe"):
                 opened.enter_context(reader)
@@ -462,11 +344,6 @@ class ProcessingPipeline:
                     if total_input_samples > 0
                     else float(max_input_samples)
                 )
-            estimated_chunks = (
-                int(math.ceil(total_input_samples / chunk_size))
-                if total_input_samples > 0
-                else 0
-            )
             channel_samples = total_input_samples / max(decimation, 1)
             phases = [
                 PhaseState("ingest", "Ingest IQ", total_input_samples, unit="samples"),
@@ -474,7 +351,7 @@ class ProcessingPipeline:
                 PhaseState("demod", "Demodulate", channel_samples, unit="samples"),
                 PhaseState(
                     "encode", "Encode Audio",
-                    max(total_input_samples / sample_rate * _OUTPUT_RATE, 0.0),
+                    max(total_input_samples / sample_rate * OUTPUT_RATE, 0.0),
                     unit="samples",
                 ),
             ]
@@ -488,27 +365,22 @@ class ProcessingPipeline:
 
             # --- warm-up: first block + mixer sign ---------------------------
             with spans.span("iq2a.setup.mix_sign"):
-                raw_first = _read(reader)
+                with spans.span("iq2a.read"):
+                    raw_first = reader.read_block_raw()
                 if raw_first is None or raw_first.size == 0:
                     raise RuntimeError("Input stream produced no samples.")
-                if resume_data is not None:
-                    mix_sign = resume_data["mix_sign"]
-                elif cfg.mix_sign_override in (1, -1):
-                    mix_sign = cfg.mix_sign_override
-                else:
-                    probe_len = mix_probe_len(raw_first.size // 2, sample_rate, len(taps))
-                    warm = convert_to_complex(
-                        raw_first[: 2 * probe_len], input_spec.codec, cfg.iq_order
-                    )
-                    mix_sign = choose_mix_sign_on(
-                        device, warm, sample_rate, freq_offset, taps, decimation
-                    )
+                mix_sign = decide_mix_sign(
+                    lambda: raw_first, device, input_spec.codec, cfg.iq_order,
+                    sample_rate, freq_offset, geo,
+                    resumed=resume_data["mix_sign"] if resume_data else None,
+                    override=cfg.mix_sign_override,
+                )
             LOG.info("Selected mixer sign %d based on warm-up snippet.", mix_sign)
             check_cancel("warm-up")
             if cfg.probe_only:
                 tracker.advance("ingest", raw_first.size // 2)
                 return ProcessingResult(
-                    sample_rate_probe=probe,
+                    sample_rate_probe=cap.probe,
                     center_freq=center_freq,
                     target_freq=target_freq,
                     freq_offset=freq_offset,
@@ -520,13 +392,13 @@ class ProcessingPipeline:
 
             with spans.span("iq2a.setup.build"):
                 # --- writers -------------------------------------------------
-                output_paths.extend(self._channel_paths(freqs, cfg.output_path))
+                output_paths.extend(names)
                 for p in output_paths:
                     p.parent.mkdir(parents=True, exist_ok=True)
                 dump_paths: list[Path | None] = [None] * len(freqs)
                 if cfg.dump_iq_path:
                     dump_paths = [
-                        self._annotate(cfg.dump_iq_path, f) if len(freqs) > 1 else cfg.dump_iq_path
+                        annotate(cfg.dump_iq_path, f) if len(freqs) > 1 else cfg.dump_iq_path
                         for f in freqs
                     ]
                 appending = resume_data is not None
@@ -557,10 +429,7 @@ class ProcessingPipeline:
                 all_writers.extend([*iq_writers, *slice_writers, *audio_writers])
 
                 # --- build the device step -----------------------------------
-                incs = [nco_increment_fixed(off, sample_rate, sign=mix_sign) for off in offsets]
-                nco_res = [
-                    nco_increment_residual(off, sample_rate, sign=mix_sign) for off in offsets
-                ]
+                incs, nco_res = nco_increments(offsets, sample_rate, mix_sign)
                 decoder = None
                 if not pass_through:
                     decoder = create_decoder(
@@ -577,9 +446,7 @@ class ProcessingPipeline:
                     ddc_plan=ddc_plan,
                     rs_plan=rs_plan,
                     ddc_kernel_np=bandpass_kernel(taps, incs, nco_res),
-                    rs_kernel_np=(
-                        design_resampler_kernel(rs_plan.up, rs_plan.down) if resampling else None
-                    ),
+                    rs_kernel_np=resampler_kernel(rs_plan),
                     incs_fixed=incs,
                     codec=input_spec.codec,
                     iq_order=cfg.iq_order,
@@ -714,7 +581,7 @@ class ProcessingPipeline:
                 )
         tracker.status("Processing complete")
         return ProcessingResult(
-            sample_rate_probe=probe,
+            sample_rate_probe=cap.probe,
             center_freq=center_freq,
             target_freq=target_freq,
             freq_offset=freq_offset,
@@ -742,7 +609,7 @@ class ProcessingPipeline:
                 path = (
                     cfg.plot_stages_path
                     if len(freqs) == 1
-                    else self._annotate(cfg.plot_stages_path, freq)
+                    else annotate(cfg.plot_stages_path, freq)
                 )
                 per_channel = {
                     name: (

@@ -3,9 +3,8 @@
 A preview is just a normal pipeline run over the first ``seconds`` of
 the capture, written next to the real output with a ``_preview`` stem
 suffix so the full-length file is never clobbered. Matches the behavior
-of the reference preview runner (reference ``preview.py``), including
-eager center-frequency resolution so a missing ``--fc`` fails before
-any DSP starts.
+of the reference preview runner (reference ``preview.py``): a missing
+``--fc`` fails before any DSP starts.
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ from dataclasses import replace
 from pathlib import Path
 
 from ..utils import spans
-from ..utils.freq import detect_center_frequency
+from .capture import default_output_path
 from .config import ProcessingConfig
 from .pipeline import ProcessingPipeline, ProcessingResult
 from .progress import ProgressSink
@@ -44,36 +43,12 @@ def run_preview(
 
     # Destination: the configured output (or the default audio_<ft>_48k.wav
     # name) with "_preview" spliced in before the extension.
-    base = config.output_path
-    if base is None:
-        ft = int(config.target_freq) if config.target_freq > 0 else 0
-        base = config.in_path.with_name(f"audio_{ft}_48k.wav")
+    base = config.output_path or default_output_path(config.in_path, max(config.target_freq, 0))
     dest = base.with_name(base.stem + "_preview" + base.suffix)
     dest.parent.mkdir(parents=True, exist_ok=True)
 
-    # Resolve the center frequency up front rather than inside the run, so
-    # preview callers get the actionable error immediately.
-    fc, fc_source = config.center_freq, config.center_freq_source
-    if fc is None:
-        with spans.span("iq2a.setup.probe"):
-            found = detect_center_frequency(config.in_path)
-        if found.value is None:
-            raise ValueError(
-                "Center frequency not supplied and could not be determined from "
-                "metadata or filename. Use --fc to provide it explicitly."
-            )
-        fc, fc_source = found.value, found.source
-        LOG.info("Center frequency detected via %s for preview run.", fc_source)
-
-    pipeline = ProcessingPipeline(
-        replace(
-            config,
-            output_path=dest,
-            center_freq=fc,
-            center_freq_source=fc_source,
-            max_input_seconds=seconds,
-        )
-    )
+    # the run resolves the centre before any DSP: a missing --fc fails first
+    pipeline = ProcessingPipeline(replace(config, output_path=dest, max_input_seconds=seconds))
     if on_pipeline is not None:
         try:
             on_pipeline(pipeline)

@@ -37,6 +37,8 @@ from pathlib import Path
 
 import numpy as np
 
+from .capture import OUTPUT_RATE, is_pass_through
+
 LOG = logging.getLogger(__name__)
 
 #: default lead-in; see the exactness model above
@@ -67,7 +69,7 @@ def warm_seconds_for(
     Never returns more than ``WARM_SECONDS`` (the validated ceiling).
     """
     mode = (demod_mode or "").lower()
-    if mode in {"none", "pass", "iq"}:
+    if is_pass_through(mode):
         ch_samples = 256.0
     elif mode in {"usb", "lsb", "ssb"} and agc_enabled:
         ch_samples = 16384.0
@@ -264,7 +266,7 @@ def splice_audio(
     segment_paths: list[Path],
     audio_skips: list[int],
     out_path: Path,
-    output_rate: int = 48_000,
+    output_rate: int = int(OUTPUT_RATE),
 ) -> tuple[float, int, float]:
     """Concatenate segment WAVs (dropping each lead-in) into ``out_path``.
 

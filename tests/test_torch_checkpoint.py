@@ -16,6 +16,7 @@ from conftest import make_nfm_iq
 import iq_to_audio_torch as tpkg
 from iq_to_audio_torch import ProcessingCancelled, ProcessingConfig, ProcessingPipeline
 from iq_to_audio_torch.io.writer import read_wav, write_stereo_wav
+from iq_to_audio_torch.pipeline.capture import channel_paths
 from iq_to_audio_torch.pipeline.progress import ProgressSink
 
 torch.set_num_threads(1)
@@ -92,9 +93,7 @@ def test_resume_produces_identical_audio(tmp_path, capture, extra):
             _CancelAfter(FS * 1.2)
         )
     first = _cfg(capture, out, **extra)
-    paths = ProcessingPipeline(first)._channel_paths(
-        [f for f in first.all_target_freqs()], out
-    )
+    paths = channel_paths(first, [f for f in first.all_target_freqs()], out)
     ckpt = paths[0].with_name(paths[0].name + ".ckpt")
     assert ckpt.exists(), "checkpoint must survive cancellation"
     assert all(p.exists() for p in paths), "partial output kept when checkpointing"

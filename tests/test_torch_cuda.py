@@ -25,6 +25,7 @@ from iq_to_audio_torch.ops import poly_fir as tpoly
 from iq_to_audio_torch.ops import ddc as tddc
 from iq_to_audio_torch.ops.ddc import bandpass_kernel, interleave_kernel
 from iq_to_audio_torch.ops.nco import device_increment, nco_increment_fixed
+from iq_to_audio_torch.pipeline import capture as tcapture
 from iq_to_audio_torch.pipeline import pipeline as tpipeline
 from iq_to_audio_torch.pipeline.filters import design_channel_filter
 from iq_to_audio_torch.ref.chain import choose_mix_sign, mix_sign_powers, pick_mix_sign
@@ -793,13 +794,13 @@ def test_pipeline_picks_the_sign_on_card(tmp_path, monkeypatch, carrier, overrid
     path = tmp_path / "baseband_145000000Hz_cap.wav"
     write_stereo_wav(path, np.column_stack([iq.real, iq.imag]), int(fs), codec="pcm_s16le")
     seen = []
-    real = tpipeline.choose_mix_sign_on
+    real = tcapture.choose_mix_sign_on
 
     def spy(device, warm, *args):
         seen.append((device, warm, args))
         return real(device, warm, *args)
 
-    monkeypatch.setattr(tpipeline, "choose_mix_sign_on", spy)
+    monkeypatch.setattr(tcapture, "choose_mix_sign_on", spy)
     cfg = ProcessingConfig(
         in_path=path, target_freq=145_000_000.0 + offset, output_path=tmp_path / "a.wav",
         chunk_size=65_536, device="cuda", mix_sign_override=override,

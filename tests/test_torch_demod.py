@@ -232,7 +232,7 @@ def test_pipeline_matches_jax_wav(tmp_path, monkeypatch, mode, agc):
     float64 reference."""
     monkeypatch.setenv("IQ2A_CHANNELIZER", "conv")
     monkeypatch.setattr(
-        "iq_to_audio_torch.pipeline.pipeline.nco_increment_residual", lambda *a, **k: 0
+        "iq_to_audio_torch.pipeline.capture.nco_increment_residual", lambda *a, **k: 0
     )
     path = _write_capture(tmp_path, SIGNALS[mode](0.6), codec="pcm_s16le")
     outs = []

@@ -231,6 +231,6 @@ def test_am_channel_follows_the_exact_mix(am_capture, tmp_path, monkeypatch, cha
 def test_without_the_residual_the_channel_drifts(am_capture, tmp_path, monkeypatch):
     path, iq = am_capture
     monkeypatch.setattr(
-        "iq_to_audio_torch.pipeline.pipeline.nco_increment_residual", lambda *a, **k: 0
+        "iq_to_audio_torch.pipeline.capture.nco_increment_residual", lambda *a, **k: 0
     )
     assert _am_dump_err(path, iq, tmp_path, "conv", monkeypatch) > -90.0

@@ -39,7 +39,7 @@ def jax_nco(monkeypatch):
     residual is held to the float64 reference in
     ``test_torch_ssb_reference.py``."""
     monkeypatch.setattr(
-        "iq_to_audio_torch.pipeline.pipeline.nco_increment_residual", lambda *a, **k: 0
+        "iq_to_audio_torch.pipeline.capture.nco_increment_residual", lambda *a, **k: 0
     )
 
 

@@ -93,7 +93,7 @@ def test_without_the_nco_residual_the_audio_drifts(bench, capture, tmp_path, mon
     0.34 counts per sample off its frequency; the real part shows it."""
     assert nco_increment_residual(-90_000.0, 2.5e6) != 0
     monkeypatch.setattr(
-        "iq_to_audio_torch.pipeline.pipeline.nco_increment_residual", lambda *a, **k: 0
+        "iq_to_audio_torch.pipeline.capture.nco_increment_residual", lambda *a, **k: 0
     )
     worst, _ = convert(bench, capture, tmp_path, 1, False)
     assert worst["mean_gap_lsb"] > DRIFT_GAP, worst
