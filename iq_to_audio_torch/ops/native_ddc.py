@@ -160,5 +160,7 @@ def ddc_apply_native(
     rest_lo = (inc_lo_fixed - (((incs32 * plan.decimation) & MASK32) << LOW_BITS)) & MASK62
     yr, yi, _ = mix_and_advance(yr, yi, rest0, rest_lo, m)
     phase_next = nco_advance(phase0_fixed, inc_lo_fixed, m)
-    new_itail = _device_scale(raw[2 * n - 2 * (L - 1) :], codec) if L > 1 else itail
+    # the state owns its tail, as ddc_apply_il's does: a float32 codec's
+    # scale is a view of ``raw``, whose buffer the caller may refill
+    new_itail = _device_scale(raw[2 * n - 2 * (L - 1) :], codec).clone() if L > 1 else itail
     return yr, yi, new_itail, phase_next

@@ -7,7 +7,8 @@ Drives the chunk step (:mod:`.step`) from a host loop with:
   (leading channel axis), one output WAV each,
 * dispatch groups of ``super_chunks`` chunks, each read by the reader
   straight into a pinned upload slot and uploaded with
-  ``non_blocking=True``,
+  ``non_blocking=True``; after the first group a worker thread reads the
+  next group while the loop enqueues and writes,
 * one device-to-host copy per accumulation window, started behind the
   window's compute and drained one window later (checkpointed runs drain
   each window before the next is dispatched),
@@ -30,6 +31,8 @@ import logging
 import math
 import os
 import pickle
+import queue
+import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -720,27 +723,102 @@ class _ChunkLoop:
         with spans.span("iq2a.read"):
             return self.reader.read_into(np.empty(2, dtype), 1) > 0
 
+    def _fill_group(self, rows: np.ndarray) -> list[int]:
+        """Fill a group's rows in place (:meth:`_fill`): valid frames per
+        row, ``[0]`` where the stream had ended before the group."""
+        valid = [self._fill(rows[0], lead=True)]
+        if valid[0]:
+            valid += [self._fill(row) for row in rows[1:]]
+        return valid
+
+    def _read_ahead(self, uploads: _PinnedRing, free, ready, stop, carried) -> None:
+        """The read-ahead worker: fill each slot that ``free`` hands back
+        with the next group, once the slot's copy is done, and hand
+        (slot, valid, last) on through ``ready`` until the stream ends; an
+        exception is handed on in its place.  From its start it alone
+        touches the reader and the stream's position."""
+        spans.adopt(carried)
+        try:
+            while True:
+                ui = free.get()
+                if ui is None or stop.is_set():
+                    return
+                with spans.span("iq2a.fill"):
+                    uploads.wait(ui)
+                    valid = self._fill_group(uploads.bufs[ui].numpy())
+                ready.put((ui, valid, self._ended))
+                if self._ended:
+                    return
+        except BaseException as exc:  # raised on the loop's thread
+            ready.put(exc)
+
+    @staticmethod
+    def _take(ready) -> tuple[int, list[int], bool]:
+        """The worker's next group, as an ``iq2a.take`` span that counts
+        whether it was filled before it was asked for."""
+        with spans.span("iq2a.take"):
+            spans.count("ahead_groups", 1)
+            spans.count("ahead_ready", int(not ready.empty()))
+            got = ready.get()
+        if isinstance(got, BaseException):
+            raise got
+        return got
+
     def _groups(self, uploads: _PinnedRing, device: torch.device):
         """Stage each dispatch group of ``super_chunks`` rows and start its
         copy to the device: yields (the device batch, valid frames per row).
-        A group takes its pinned slot first (waiting for the slot's previous
-        copy) and fills its rows in place (:meth:`_fill`); a partial final
-        group ends in silent rows that count nothing (valid = 0)."""
+        Each group's rows are filled in place in a pinned slot
+        (:meth:`_fill`); a partial final group ends in silent rows that
+        count nothing (valid = 0).
+
+        The first group, which holds the warm-up's block, is filled here.
+        If the stream goes on past it, a worker thread (:meth:`_read_ahead`)
+        fills the next groups while this thread enqueues and writes: a slot
+        goes back to it once its copy is queued (on the card, where the
+        worker waits for the copy's event) or once the step that read it has
+        returned (on the CPU, where the slot is the step's input).  The
+        worker is stopped and joined however the loop ends."""
         frame_bytes = 2 * self.raw_first.itemsize  # an interleaved input frame
-        while not self._ended:
-            with spans.span("iq2a.stage"):
-                host, ui = uploads.next()
-                rows = host.numpy()
-                valid = [self._fill(rows[0], lead=True)]
-                if valid[0]:
-                    valid += [self._fill(row) for row in rows[1:]]
-                    raw_dev = host.to(device, non_blocking=True)
-                    uploads.record(ui)
-                    spans.count("h2d_bytes", host.nbytes)
-                    spans.count("input_bytes", sum(valid) * frame_bytes)
-            if not valid[0]:
-                return  # the capture ended on the previous group's last row
-            yield raw_dev, valid
+        free, ready, stop = queue.SimpleQueue(), queue.SimpleQueue(), threading.Event()
+        worker = None
+        try:
+            while True:
+                with spans.span("iq2a.stage"):
+                    if worker is None:
+                        host, ui = uploads.next()
+                        valid, last = self._fill_group(host.numpy()), self._ended
+                    else:
+                        ui, valid, last = self._take(ready)
+                        host = uploads.bufs[ui]
+                    if valid[0]:
+                        raw_dev = host.to(device, non_blocking=True)
+                        uploads.record(ui)
+                        spans.count("h2d_bytes", host.nbytes)
+                        spans.count("input_bytes", sum(valid) * frame_bytes)
+                if not valid[0]:
+                    return  # the capture ended on the previous group's last row
+                if worker is None and not last:
+                    for other in range(len(uploads.bufs)):
+                        if other != ui:
+                            free.put(other)
+                    thread = threading.Thread(
+                        target=self._read_ahead, name="iq2a-read-ahead",
+                        args=(uploads, free, ready, stop, spans.carry()),
+                    )
+                    thread.start()
+                    worker = thread
+                if uploads.cuda:
+                    free.put(ui)
+                yield raw_dev, valid
+                if last:
+                    return
+                if not uploads.cuda:
+                    free.put(ui)
+        finally:
+            if worker is not None:
+                stop.set()
+                free.put(None)
+                worker.join()
 
     def _snapshot_chunk(self, state, accs, raw, rs_offset, slot):
         """The first chunk through ``fn_stages``; the snapshots come to the
@@ -823,53 +901,54 @@ class _ChunkLoop:
             pending = (di, window)
             self.check_cancel(f"chunk {idx} encode")
 
-        for raw_dev, valid in self._groups(uploads, device):
-            if not window:  # a window opens
-                self.check_cancel(f"chunk {idx + 1}")
-                if self.on_drained is not None and pending is not None:
-                    drain(*pending)
-                    pending = None
-                    self.on_drained(state)
-            # exact host bookkeeping (Python ints, no syncs)
-            slot_base = idx % acc_chunks
-            rs_offset = rs_plan.chunk_offset(self.rs_in_device) if resampling else 0
-            group_dec = group_audio = 0
-            for valid_frames in valid:
-                self.processed_samples += valid_frames
-                dec_total = -(-self.processed_samples // decimation)  # ceil
-                dec_valid = dec_total - self.dec_emitted
-                self.dec_emitted = dec_total
-                if resampling:
-                    audio_count = rs_plan.out_count(self.rs_in_device, dec_valid)
-                    self.rs_in_device += n_dec
-                    self.rs_in_valid += dec_valid
-                else:
-                    audio_count = 0 if pass_through else dec_valid
-                self.rs_emitted += audio_count
-                window.append((dec_valid, audio_count))
-                group_dec += dec_valid
-                group_audio += audio_count
-            with spans.span("iq2a.step"):
-                if self.want_stages and idx == 0:
-                    # stage runs dispatch chunk by chunk (super_chunks == 1)
-                    state = self._snapshot_chunk(state, accs, raw_dev[0], rs_offset, slot_base)
-                elif step.super_chunks > 1:
-                    state = step.fn_super(state, accs, raw_dev, rs_offset, slot_base)
-                else:
-                    state = step.fn(state, accs, raw_dev[0], rs_offset, slot_base)
-                spans.count("chunks", len(valid))
-            idx += len(valid)
-            # progress from the host counters: no device sync
-            tracker.advance("ingest", float(sum(valid)))
-            tracker.advance("channel", float(group_dec))
-            if dump_iq:
-                tracker.advance("dump_iq", float(group_dec))
-            tracker.advance("demod", float(group_dec))
-            if not pass_through:
-                tracker.advance("encode", float(group_audio))
-            if len(window) == acc_chunks:
-                close_window()
-                window = []
+        with contextlib.closing(self._groups(uploads, device)) as groups:
+            for raw_dev, valid in groups:
+                if not window:  # a window opens
+                    self.check_cancel(f"chunk {idx + 1}")
+                    if self.on_drained is not None and pending is not None:
+                        drain(*pending)
+                        pending = None
+                        self.on_drained(state)
+                # exact host bookkeeping (Python ints, no syncs)
+                slot_base = idx % acc_chunks
+                rs_offset = rs_plan.chunk_offset(self.rs_in_device) if resampling else 0
+                group_dec = group_audio = 0
+                for valid_frames in valid:
+                    self.processed_samples += valid_frames
+                    dec_total = -(-self.processed_samples // decimation)  # ceil
+                    dec_valid = dec_total - self.dec_emitted
+                    self.dec_emitted = dec_total
+                    if resampling:
+                        audio_count = rs_plan.out_count(self.rs_in_device, dec_valid)
+                        self.rs_in_device += n_dec
+                        self.rs_in_valid += dec_valid
+                    else:
+                        audio_count = 0 if pass_through else dec_valid
+                    self.rs_emitted += audio_count
+                    window.append((dec_valid, audio_count))
+                    group_dec += dec_valid
+                    group_audio += audio_count
+                with spans.span("iq2a.step"):
+                    if self.want_stages and idx == 0:
+                        # stage runs dispatch chunk by chunk (super_chunks == 1)
+                        state = self._snapshot_chunk(state, accs, raw_dev[0], rs_offset, slot_base)
+                    elif step.super_chunks > 1:
+                        state = step.fn_super(state, accs, raw_dev, rs_offset, slot_base)
+                    else:
+                        state = step.fn(state, accs, raw_dev[0], rs_offset, slot_base)
+                    spans.count("chunks", len(valid))
+                idx += len(valid)
+                # progress from the host counters: no device sync
+                tracker.advance("ingest", float(sum(valid)))
+                tracker.advance("channel", float(group_dec))
+                if dump_iq:
+                    tracker.advance("dump_iq", float(group_dec))
+                tracker.advance("demod", float(group_dec))
+                if not pass_through:
+                    tracker.advance("encode", float(group_audio))
+                if len(window) == acc_chunks:
+                    close_window()
+                    window = []
         if window:
             close_window()
         if pending is not None:

@@ -12,6 +12,12 @@ Parents come from a stack per thread.  The root span ``iq2a.job`` (the
 :func:`job` decorator) takes a process-wide sequence number, the job id,
 which every span nested under it on the same thread carries; a span opened
 outside any job has job id ``None``.
+
+The profiler records on the thread that started it.  A worker thread that
+works for a job takes up that thread's state with :func:`carry` (on the
+job's thread) and :func:`adopt` (on the worker): its spans then record
+while the job's thread recorded when the worker started, and carry the
+job's id.  They are roots on the worker's own stack.
 """
 
 from __future__ import annotations
@@ -68,7 +74,10 @@ class _Span:
         stack = _stack()
         parent, up = stack[-1] if stack else (None, None)
         with _lock:
-            job_id = next(_job_ids) if self._new_job else (up.job if up else None)
+            if self._new_job:
+                job_id = next(_job_ids)
+            else:
+                job_id = up.job if up else getattr(_local, "job", None)
             index = len(_records)
             self._rec = Record(
                 self._name, time.perf_counter_ns(), 0, parent, job_id, threading.get_ident()
@@ -83,9 +92,13 @@ class _Span:
         self._fn.__exit__(*exc)
 
 
+def _recording() -> bool:
+    return _enabled() or getattr(_local, "on", False)
+
+
 def span(name: str):
     """A context manager that records ``name`` while the profiler records."""
-    if not _enabled():
+    if not _recording():
         return _OFF
     return _Span(name)
 
@@ -93,7 +106,7 @@ def span(name: str):
 def count(name: str, n: int) -> None:
     """Add ``n`` to counter ``name`` of the innermost open span on this
     thread (nothing outside a span, or while the profiler is off)."""
-    if not _enabled():
+    if not _recording():
         return
     stack = _stack()
     if stack:
@@ -116,6 +129,22 @@ def job(fn):
             return fn(*args, **kwargs)
 
     return call
+
+
+def carry() -> tuple[bool, int | None]:
+    """This thread's recording state, for a worker thread to :func:`adopt`:
+    whether its spans record, and the id of its innermost open job."""
+    if not _enabled():
+        return False, None
+    stack = _stack()
+    return True, stack[-1][1].job if stack else None
+
+
+def adopt(carried: tuple[bool, int | None]) -> None:
+    """On a worker thread, record as :func:`carry`'s thread did when it was
+    called: spans record (or not) whatever the profiler does on this
+    thread, and spans opened with no parent carry that thread's job id."""
+    _local.on, _local.job = carried
 
 
 def records() -> list[Record]:
