@@ -1,11 +1,14 @@
 """AM envelope detector with DC blocking (port of the JAX package's
-``demod/am.py``; reference ``decoders/am.py``)."""
+``demod/am.py``; reference ``decoders/am.py``), in float32.  The chain is
+the span ``iq2a.am`` (:mod:`iq_to_audio_torch.utils.spans`): the host's
+enqueue of its kernels, once per chunk."""
 
 from __future__ import annotations
 
 import torch
 
 from ..ops.iir import dc_blocker
+from ..utils import spans
 from .base import Decoder
 from .ssb import DC_RADIUS
 
@@ -28,10 +31,11 @@ class AMDecoder(Decoder):
         }
 
     def process(self, state, yr, yi):
-        envelope = torch.sqrt(yr * yr + yi * yi)
-        audio, (x_last, y_last) = dc_blocker(
-            envelope, self.dc_radius, state["dc_x"], state["dc_y"]
-        )
-        new_state = {"dc_x": x_last.clone(), "dc_y": y_last.clone()}
+        with spans.span("iq2a.am"):
+            envelope = torch.sqrt(yr * yr + yi * yi)
+            audio, (x_last, y_last) = dc_blocker(
+                envelope, self.dc_radius, state["dc_x"], state["dc_y"]
+            )
+            new_state = {"dc_x": x_last.clone(), "dc_y": y_last.clone()}
         inter = {"envelope": envelope, "dc_block": audio, "audio": audio}
         return audio, new_state, inter

@@ -23,6 +23,12 @@ BANDWIDTHS = {"nfm": 12_500.0, "usb": 2_800.0}
 CODECS = ("pcm_s16le", "pcm_u8", "pcm_f32le")
 #: the probe reads the first 131,072 samples; a block holds a few more
 SAMPLES = 140_000
+#: the airband deployment: 20 MS/s, 12.5 kHz channels, 12,801 taps at D = 208;
+#: the probe reads the first 1,000,000 samples (0.05 s)
+WIDE_FS = 20_000_000.0
+WIDE_DECIMATION = 208
+WIDE_OFFSET = 350_000.0
+WIDE_SAMPLES = 1_040_000
 
 
 @functools.cache
@@ -30,15 +36,23 @@ def taps(mode: str) -> np.ndarray:
     return design_channel_filter(FS, BANDWIDTHS[mode], DECIMATION)
 
 
-def raw_block(codec: str, carrier: int, seed: int, samples: int = SAMPLES) -> np.ndarray:
+@functools.cache
+def wide_taps() -> np.ndarray:
+    return design_channel_filter(WIDE_FS, BANDWIDTHS["nfm"], WIDE_DECIMATION)
+
+
+def raw_block(
+    codec: str, carrier: int, seed: int, samples: int = SAMPLES, fs: float = FS,
+    offset: float = OFFSET,
+) -> np.ndarray:
     """An interleaved raw block in ``codec``: noise 26 dB under full scale,
-    plus an FM carrier at ``carrier * OFFSET`` Hz unless ``carrier`` is 0."""
+    plus an FM carrier at ``carrier * offset`` Hz unless ``carrier`` is 0."""
     rng = np.random.default_rng([seed, samples])
     iq = 0.05 * (rng.standard_normal(samples) + 1j * rng.standard_normal(samples))
     if carrier:
         n = np.arange(samples)
         audio = np.cumsum(rng.uniform(-1.0, 1.0, samples)) / 200.0
-        phase = 2 * np.pi * carrier * OFFSET * n / FS + 2.0 * np.sin(audio)
+        phase = 2 * np.pi * carrier * offset * n / fs + 2.0 * np.sin(audio)
         iq += 0.4 * np.exp(1j * phase)
     pair = np.column_stack([iq.real, iq.imag]).reshape(-1)
     if codec == "pcm_s16le":
@@ -51,3 +65,9 @@ def raw_block(codec: str, carrier: int, seed: int, samples: int = SAMPLES) -> np
 def warm_block(codec: str, carrier: int, seed: int, samples: int = SAMPLES) -> np.ndarray:
     """The complex64 warm-up block the pipeline hands the probe."""
     return convert_to_complex(raw_block(codec, carrier, seed, samples), codec)
+
+
+def wide_warm_block(carrier: int, seed: int) -> np.ndarray:
+    """A 20 MS/s s16 warm-up block, a carrier at ``carrier * WIDE_OFFSET``."""
+    raw = raw_block("pcm_s16le", carrier, seed, WIDE_SAMPLES, WIDE_FS, WIDE_OFFSET)
+    return convert_to_complex(raw, "pcm_s16le")

@@ -17,6 +17,7 @@ import torch
 
 from mix_probe_cases import CODECS, DECIMATION, OFFSET, taps, warm_block
 from mix_probe_cases import FS as PROBE_FS
+from mix_probe_cases import WIDE_DECIMATION, WIDE_FS, WIDE_OFFSET, wide_taps, wide_warm_block
 
 from iq_to_audio_torch import ProcessingConfig, ProcessingPipeline
 from iq_to_audio_torch.io.writer import read_wav, write_stereo_wav
@@ -125,6 +126,40 @@ def test_kernel_odd_and_wide_decimation(decim, layout):
         fn, plain = tpoly.poly_fir_pair, tpoly.poly_fir_pair_plain
     x, w = x.to(dev), w.to(dev)
     got = fn(x, w, decim, out_size)
+    assert _err_db(got.cpu(), plain(x, w, decim, out_size).cpu()) < -100.0
+
+
+#: the airband deployment's five carriers (20 MS/s, D = 208, 12,801 taps)
+AIRBAND_OFFSETS = (-6_600_000.0, -3_150_000.0, 350_000.0, 4_975_000.0, 7_025_000.0)
+
+
+@pytest.mark.parametrize("layout", ["il", "pair"])
+def test_kernel_at_the_airband_geometry(layout):
+    """The chunk of the airband cell: 12,801 taps at D = 208 (F = 416,
+    K = 62), five channels (O = 10), 20,000 output rows, against the plain
+    version; two launches bit for bit."""
+    dev = _card()
+    decim, out_size = 208, 20_000
+    taps = design_channel_filter(20e6, 12_500.0, decim)
+    assert len(taps) == 12_801
+    incs = [nco_increment_fixed(o, 20e6) for o in AIRBAND_OFFSETS]
+    kernel = bandpass_kernel(taps, incs)
+    rng = np.random.default_rng(208)
+    if layout == "il":
+        w = tpoly.build_poly_kernel(interleave_kernel(kernel, "iq"), 2 * decim)
+        x = rng.uniform(-1, 1, 2 * (len(taps) - 1) + 2 * out_size * decim)
+        fn, plain = tpoly.poly_fir_il, tpoly.poly_fir_il_plain
+    else:
+        w = tpoly.build_poly_kernel(kernel, decim)
+        x = rng.uniform(-1, 1, (2, len(taps) - 1 + out_size * decim))
+        fn, plain = tpoly.poly_fir_pair, tpoly.poly_fir_pair_plain
+    assert w.shape == (62, 416, 10)
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    w = torch.from_numpy(w).to(dev)
+    got = fn(x, w, decim, out_size)
+    again = fn(x, w, decim, out_size)
+    torch.cuda.synchronize()
+    assert got.shape == (10, out_size) and torch.equal(got, again)
     assert _err_db(got.cpu(), plain(x, w, decim, out_size).cpu()) < -100.0
 
 
@@ -820,3 +855,24 @@ def test_pipeline_picks_the_sign_on_card(tmp_path, monkeypatch, carrier, overrid
     assert device.type == "cuda"
     assert result.mix_sign == choose_mix_sign(warm, *args) == carrier
     assert rec.counters == {"probe_on_device": 1}
+
+
+@pytest.mark.parametrize("carrier", [1, -1, 0], ids=["plus", "minus", "noise"])
+def test_mix_probe_at_the_airband_geometry(carrier):
+    """12,801 taps at D = 208 over the first 1,000,000 samples of a 20 MS/s
+    block (nine outputs a CTA, every tap in one pass): the kernel's powers
+    against the host twin's, 1e-10 relative, the same sign (the CPU tests
+    hold the twin's sign to the JAX package's on the same blocks), one
+    launch."""
+    dev = _card()
+    h = wide_taps()
+    warm = wide_warm_block(carrier, seed=208 + carrier)
+    assert mix_probe.choose_tile(3_606, h.size, WIDE_DECIMATION, 132) == (9, 12_801)
+    before = mix_probe.mix_sign_powers.launches
+    got = mix_probe.mix_sign_powers(warm, WIDE_FS, WIDE_OFFSET, h, WIDE_DECIMATION, dev)
+    assert mix_probe.mix_sign_powers.launches == before + 1
+    _agree_1e10(got, mix_sign_powers(warm, WIDE_FS, WIDE_OFFSET, h, WIDE_DECIMATION))
+    sign = choose_mix_sign(warm, WIDE_FS, WIDE_OFFSET, h, WIDE_DECIMATION)
+    assert pick_mix_sign(got) == sign
+    if carrier:
+        assert sign == carrier

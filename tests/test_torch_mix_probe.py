@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from mix_probe_cases import CODECS, DECIMATION, FS, OFFSET, taps, warm_block
+from mix_probe_cases import WIDE_DECIMATION, WIDE_FS, WIDE_OFFSET, wide_taps, wide_warm_block
 
 from iq_to_audio_tpu.ref.chain import choose_mix_sign as jax_choose_mix_sign
 
@@ -59,6 +60,25 @@ def test_plain_matches_twin(mode, codec, carrier):
     _agree(got, want)
     sign = choose_mix_sign(warm, FS, OFFSET, h, DECIMATION)
     assert pick_mix_sign(got) == sign == jax_choose_mix_sign(warm, FS, OFFSET, h, DECIMATION)
+    if carrier:
+        assert sign == carrier
+
+
+@pytest.mark.parametrize("carrier", [1, -1, 0], ids=["plus", "minus", "noise"])
+def test_plain_matches_twin_at_20_msps(carrier):
+    """The airband geometry: 12,801 taps at D = 208 over the first
+    1,000,000 samples; the powers agree, and so do the signs, the JAX
+    package's included."""
+    h = wide_taps()
+    assert h.size == 12_801
+    warm = wide_warm_block(carrier, seed=208 + carrier)
+    n, d, k, first = probe_geometry(warm.size, WIDE_FS, h.size, WIDE_DECIMATION)
+    assert (n, d, k, first) == (1_000_000, 208, 4_808, 1_202)
+    want = twin_powers(warm, WIDE_FS, WIDE_OFFSET, h, WIDE_DECIMATION)
+    _agree(mix_sign_powers_plain(warm, WIDE_FS, WIDE_OFFSET, h, WIDE_DECIMATION), want)
+    sign = choose_mix_sign(warm, WIDE_FS, WIDE_OFFSET, h, WIDE_DECIMATION)
+    assert pick_mix_sign(want) == sign
+    assert sign == jax_choose_mix_sign(warm, WIDE_FS, WIDE_OFFSET, h, WIDE_DECIMATION)
     if carrier:
         assert sign == carrier
 
@@ -133,7 +153,7 @@ def test_the_kernels_tiling_matches_plain(m, tc):
 @pytest.mark.parametrize(
     "n_out,n_taps,decimation",
     [(3_782, 1_601, 26), (3_782, 7_143, 26), (1, 1, 1), (3_782, 30_000, 26),
-     (100, 1_601, 5_000), (1_000_000, 64, 2), (48_076, 1_601, 260)],
+     (100, 1_601, 5_000), (1_000_000, 64, 2), (48_076, 1_601, 260), (3_606, 12_801, 208)],
 )
 def test_tile_fits_shared_memory(n_out, n_taps, decimation, sm_count):
     """Every tile fits 227 KB; a tile that did not shrink puts both signs
@@ -143,7 +163,7 @@ def test_tile_fits_shared_memory(n_out, n_taps, decimation, sm_count):
     assert smem_bytes(m, tc, decimation) <= mix_probe._SMEM_MAX
     if m == -(-2 * n_out // sm_count):
         assert 2 * -(-n_out // m) <= sm_count + 1
-    if (n_taps, decimation) in ((1_601, 26), (7_143, 26)):
+    if (n_taps, decimation) in ((1_601, 26), (7_143, 26), (12_801, 208)):
         assert tc == n_taps
 
 

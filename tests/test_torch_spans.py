@@ -291,11 +291,12 @@ def test_profile_dir_trace_carries_the_loop_spans_and_none_stay(capture, tmp_pat
     assert spans.records() == []
 
 
-@pytest.mark.parametrize("mode", ["usb", "lsb", "nfm"])
+@pytest.mark.parametrize("mode", ["usb", "lsb", "nfm", "am"])
 def test_the_ssb_chain_is_one_span_per_chunk_inside_the_step(capture, tmp_path, mode):
     """``iq2a.ssb`` wraps the SSB decoder's chain once per chunk, inside the
-    step's enqueue, with no counters; other modes record none; recording
-    changes no output byte."""
+    step's enqueue, with no counters, as ``iq2a.am`` wraps the AM decoder's
+    (envelope, DC blocker); other modes record neither; recording changes
+    no output byte."""
 
     def run(out):
         cfg = tpkg.ProcessingConfig(
@@ -309,15 +310,17 @@ def test_the_ssb_chain_is_one_span_per_chunk_inside_the_step(capture, tmp_path, 
     with recording():
         traced = run(tmp_path / "on.wav")
     recs = spans.records()
-    ssb = [r for r in recs if r.name == "iq2a.ssb"]
+    chain = {"usb": "iq2a.ssb", "lsb": "iq2a.ssb", "am": "iq2a.am"}.get(mode)
     steps = {i for i, r in enumerate(recs) if r.name == "iq2a.step"}
     chunks = sum(r.counters.get("chunks", 0) for r in recs)
     assert chunks == traced.dispatched_chunks > 1
-    if mode == "nfm":
-        assert ssb == []
-    else:
-        assert len(ssb) == chunks
-        assert all(r.parent in steps and not r.counters for r in ssb)
+    for name in ("iq2a.ssb", "iq2a.am"):
+        got = [r for r in recs if r.name == name]
+        if name != chain:
+            assert got == []
+        else:
+            assert len(got) == chunks
+            assert all(r.parent in steps and not r.counters for r in got)
     assert len(traced.output_paths) == len(plain.output_paths) == 2
     for on, off in zip(traced.output_paths, plain.output_paths):
         assert on.read_bytes() == off.read_bytes()
